@@ -1,0 +1,31 @@
+"""otslam_tpu_torch — the PyTorch/CUDA port of otslam_tpu.
+
+The port mirrors otslam_tpu's module paths, so each counterpart is found by
+name; otslam_tpu stays the reference the port is tested against. This
+package never imports jax or otslam_tpu.
+
+Layer map of the first slice (per-object reconstruction and its eval):
+  core/        camera model, SE(3)/frames, PLY/pose/depth io, volume io
+  kernels/     TSDF fusion (dense and block-sparse), resampling, NN/chamfer;
+               the hand-written CUDA kernels live in csrc/ and are built
+               on first use by kernels/_build.py
+  pipeline/    dataset reader + frames -> TSDF -> point cloud
+  sim/         analytic scenes and the RGB-D renderer (test/benchmark data)
+  eval/        accuracy/completeness metrics and GT scenarios
+
+Every function that takes a ``device`` argument runs there; a CUDA device
+requested on a machine without CUDA raises instead of running on the CPU.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Geometry here is precision-critical: TF32 keeps ~10 mantissa bits, the
+# same class of error as the bf16 MXU rounding the JAX package pins away
+# (otslam_tpu/__init__.py). Pin full f32 for matmuls and convolutions.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from otslam_tpu_torch.config import OTSLAMConfig  # noqa: E402,F401

@@ -1,0 +1,17 @@
+"""Device selection: an explicit device, and no silent move to the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """torch.device for `device` (None -> "cpu"). A CUDA device on a machine
+    without CUDA raises: the port never falls back to the CPU on its own."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but CUDA is not available "
+            f"(torch {torch.__version__}); pass device='cpu' to run the "
+            "plain PyTorch path")
+    return dev

@@ -1,0 +1,148 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+On first use the sources are compiled with nvcc into one shared library with
+a plain C interface, which is loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -o build/otslam_tpu_torch/<hash>/lib...so
+
+The library lands under ``build/`` at the root of the checkout, in a
+directory named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is reused.
+
+``-fmad=false``: the kernels are memory-bound, so contraction buys nothing,
+and a fused multiply-add would round differently from the plain PyTorch
+versions (flipping ``rint(u)`` at .5 and the band comparisons).
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+`check` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "otslam_tpu_torch"
+LIB_NAME = "libotslam_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# argtypes of every C entry point (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "otslam_classify": [_P, _P, _P, _P, _P,             # table gb ext band vis
+                        _I, _I, _I, _I, _I, _I, _I, _I,  # n nb gby gbz th tw W H
+                        _F, _F, _F, _F, _F, _F, _F, _F,  # ox oy oz vs half r rh sn
+                        _F, _F, _F, _F, _F, _P],         # fx fy cx cy trunc stream
+    "otslam_fuse": [_P, _P, _P, _P, _P, _P, _I,         # t w c ids ptr frames A
+                    _P, _P, _P, _I, _I, _I, _I,         # depth cpk ext H W gby gbz
+                    _F, _F, _F, _F, _F, _F, _F, _F,     # ox oy oz vs fx fy cx cy
+                    _F, _F, _P],                        # trunc 1/trunc stream
+    "otslam_nn": [_P, _P, _I, _I, _P, _P, _P],          # src dst n m bd bi stream
+}
+
+_LIB: ctypes.CDLL | None = None
+BUILD_LOG = {"seconds": None, "output": "", "path": None}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc_path() -> str | None:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in ([home] if home else []) + ["/usr/local/cuda"]:
+        cand = Path(root) / "bin" / "nvcc"
+        if cand.is_file():
+            return str(cand)
+    return None
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, compiled on first use. Raises RuntimeError when
+    nvcc is missing or the build fails; never returns a stub."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    out_dir = BUILD_ROOT / _digest(srcs)
+    lib_path = out_dir / LIB_NAME
+    if not lib_path.is_file():
+        nvcc = nvcc_path()
+        if nvcc is None:
+            raise RuntimeError(
+                "nvcc not found (PATH, CUDA_HOME): the otslam_tpu_torch CUDA "
+                "kernels are built from csrc/ on first use and need the CUDA "
+                "toolkit; CPU tensors take the plain PyTorch path instead")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so",
+                                         delete=False) as tmp:
+            tmp_path = tmp.name
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp_path,
+                               *map(str, srcs)],
+                              capture_output=True, text=True)
+        BUILD_LOG["output"] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp_path)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{BUILD_LOG['output']}")
+        os.replace(tmp_path, lib_path)     # atomic: no half-written library
+        BUILD_LOG["seconds"] = time.perf_counter() - t0
+    BUILD_LOG["path"] = str(lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _LIB = lib
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def check_operands(*tensors: torch.Tensor) -> None:
+    """Kernel operands: contiguous CUDA tensors, all on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"kernel operands must share one CUDA device: "
+                             f"{t.device} vs {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on `device`, as a pointer for ctypes."""
+    return torch.cuda.current_stream(device).cuda_stream

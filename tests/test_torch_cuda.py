@@ -1,0 +1,116 @@
+"""Kernels K1, K2, K3 of otslam_tpu_torch against their plain PyTorch
+versions, on a CUDA GPU. Every test here is marked `cuda` and skips on a
+machine without one; the same comparisons at the main path's full size are
+phases of chip_smoke.py.
+
+This file imports neither jax nor otslam_tpu, so it also runs where JAX is
+not installed. The repository's tests/conftest.py imports jax, so there run
+it without conftests:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from otslam_tpu_torch.config import TSDFConfig
+from otslam_tpu_torch.core.camera import PinholeIntrinsics
+from otslam_tpu_torch.kernels import nn, tsdf_cuda as tc
+from otslam_tpu_torch.kernels import tsdf_block as ttb
+from otslam_tpu_torch.sim.sensors import look_at_pose, render_rgbd
+from otslam_tpu_torch.sim.world import cardboard_room
+
+pytestmark = pytest.mark.cuda
+
+INTR = PinholeIntrinsics(160, 120, 141.400225, 141.400225, 80.5, 60.5)
+VOL = TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, dims=(64, 64, 32),
+                 origin=(0.86, -0.14, -0.02))
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def frames():
+    """8 frames of a capture circle around the cardboard box (CPU)."""
+    c = np.array([1.5, 0.5, 0.15])
+    ds, cs, es = [], [], []
+    for i in range(8):
+        a = 2 * np.pi * i / 8
+        pose = look_at_pose([c[0] + np.cos(a), c[1] + np.sin(a), 0.5], c)
+        d, col = render_rgbd(cardboard_room(), pose, INTR, far=5.0)
+        ds.append(torch.where(d <= 3.0, d, 0.0))
+        cs.append(col)
+        es.append(torch.as_tensor(np.linalg.inv(pose), dtype=torch.float32))
+    return torch.stack(ds), torch.stack(cs), torch.stack(es)
+
+
+def test_classify_kernel_matches_plain(dev, frames):
+    depths, _, exts = (x.to(dev) for x in frames)
+    meta = ttb.make_block_volume(VOL, dev).meta
+    before = tc.classify_blocks.launches
+    band_k, vis_k = tc.classify_blocks(meta, depths, exts, INTR)
+    band_p, vis_p = tc.classify_blocks_torch(meta, depths, exts, INTR)
+    assert tc.classify_blocks.launches == before + 1
+    assert band_p.any() and torch.equal(band_k, band_p)
+    assert torch.equal(vis_k, vis_p)
+
+
+def test_fuse_kernel_matches_plain(dev, frames):
+    depths, colors, exts = (x.to(dev) for x in frames)
+    kv = ttb.make_block_volume(VOL, dev)
+    pv = ttb.make_block_volume(VOL, dev)
+    band, vis = tc.classify_blocks_torch(kv.meta, depths, exts, INTR)
+    _, active = tc.created_and_active(band, vis, kv.created[:-1])
+    ids, ptr, frames_ = tc.active_worklist(active)
+    cpk = ttb.pack_rgb(colors)
+    tc.fuse_blocks(kv, ids, ptr, frames_, depths, cpk, exts, INTR)
+    tc.fuse_blocks_torch(pv, ids, ptr, frames_, depths, cpk, exts, INTR)
+    assert pv.weight.sum() > 0 and torch.equal(kv.weight, pv.weight)
+    assert float((kv.tsdf - pv.tsdf).abs().max()) <= 1e-5
+    assert float((kv.color - pv.color).abs().max()) <= 1e-3
+    with pytest.raises(ValueError, match="out of range"):
+        tc.fuse_blocks(kv, ids + kv.num_blocks, ptr, frames_, depths, cpk,
+                       exts, INTR)
+
+
+def test_fusion_on_the_card_matches_the_cpu_path(dev, frames):
+    """The whole schedule with both kernels equals the plain CPU path."""
+    gpu = ttb.integrate_frames_sparse(ttb.make_block_volume(VOL, dev),
+                                      *(x.to(dev) for x in frames), INTR)
+    cpu = ttb.integrate_frames_sparse(ttb.make_block_volume(VOL), *frames,
+                                      INTR)
+    assert torch.equal(gpu.created.cpu(), cpu.created)
+    assert torch.equal(gpu.weight.cpu(), cpu.weight)
+    assert float((gpu.tsdf.cpu() - cpu.tsdf).abs().max()) <= 1e-5
+    assert float((gpu.color.cpu() - cpu.color).abs().max()) <= 1e-3
+
+
+def test_nn_kernel_matches_plain(dev):
+    rng = np.random.default_rng(11)
+    dst = rng.uniform(-1, 1, (5000, 3)).astype(np.float32)
+    dst[100:200] = dst[:100]                # exact ties: lowest index wins
+    src = (dst[rng.integers(0, 5000, 3000)]
+           + rng.normal(0, 0.01, (3000, 3))).astype(np.float32)
+    mask = rng.random(5000) > 0.05
+    src, dst, mask = (torch.as_tensor(a, device=dev)
+                      for a in (src, dst, mask))
+    before = nn.nn_min.launches
+    dk, ik = nn.nn_min(src, dst, mask)
+    dp, ip = nn.nn_min_torch(src, dst, mask)
+    assert nn.nn_min.launches == before + 1
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    d_all, i_all = nn.nn_min(src, dst, torch.zeros_like(mask))
+    assert torch.all(d_all == nn.BIG) and torch.all(i_all == 0)
+
+
+def test_wrappers_refuse_mixed_devices(dev, frames):
+    depths, _, exts = frames
+    meta = ttb.make_block_volume(VOL, dev).meta
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tc.classify_blocks(meta, depths.to(dev), exts, INTR)

@@ -1,0 +1,165 @@
+"""Package hygiene of otslam_tpu_torch: no jax, explicit devices, kernels
+built from source or an error, and CPU runs that never touch a kernel."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import otslam_tpu_torch
+from otslam_tpu_torch.config import TSDFConfig
+from otslam_tpu_torch.kernels import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "otslam_tpu_torch"
+SMALL = {"camera": {"width": 160, "height": 120, "fx": 141.400225,
+                    "fy": 141.400225, "cx": 80.5, "cy": 60.5},
+         "reconstruction": {
+             "surface_samples": 5000,
+             "camera": {"width": 160, "height": 120, "fx": 141.400225,
+                        "fy": 141.400225, "cx": 80.5, "cy": 60.5},
+             "tsdf": {"voxel_size": 0.02, "sdf_trunc": 0.08,
+                      "dims": [64, 64, 64]}}}
+
+
+def run_py(code: str, *args: str, cwd=None) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", code, *args], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+
+
+# runs the CLI in-process, then reports the modules and launch counters
+CLI = """
+import json, runpy, sys
+sys.argv = ["otslam_tpu_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("otslam_tpu_torch.cli", run_name="__main__")
+finally:
+    from otslam_tpu_torch.kernels import nn, tsdf_cuda
+    print("REPORT " + json.dumps({
+        "jax": "jax" in sys.modules,
+        "otslam_tpu": "otslam_tpu" in sys.modules,
+        "launches": [tsdf_cuda.classify_blocks.launches,
+                     tsdf_cuda.fuse_blocks.launches, nn.nn_min.launches]}))
+"""
+
+
+def report(proc) -> dict:
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("REPORT ")]
+    assert line, proc.stdout + proc.stderr
+    return json.loads(line[-1][len("REPORT "):])
+
+
+def test_sources_never_import_jax_or_the_jax_package():
+    bad = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|otslam_tpu)\b", re.M)
+    offenders = [str(p) for p in PKG.rglob("*.py") if bad.search(p.read_text())]
+    assert not offenders
+
+
+def test_import_and_cli_help_stay_off_jax():
+    proc = run_py("import sys, otslam_tpu_torch\n"
+                  "import otslam_tpu_torch.pipeline.reconstruct, "
+                  "otslam_tpu_torch.eval.metrics, otslam_tpu_torch.cli\n"
+                  "print(sorted(m for m in sys.modules if m.split('.')[0] "
+                  "in ('jax', 'otslam_tpu')))")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    for sub in ([], ["reconstruct"], ["eval"]):
+        proc = run_py(CLI, *sub, "--help")
+        assert "usage:" in proc.stdout
+        assert not report(proc)["jax"]
+
+
+def test_precision_is_pinned():
+    assert otslam_tpu_torch.__version__
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_cpu_reconstruct_and_eval_through_the_cli(tmp_path):
+    """A dataset written by the port, reconstructed and scored through the
+    CLI on the CPU: no jax, and no kernel launch."""
+    root = tmp_path / "ds"
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps(SMALL))
+    make = run_py(f"""
+import numpy as np
+from otslam_tpu_torch.config import OTSLAMConfig
+from otslam_tpu_torch.core.camera import PinholeIntrinsics
+from otslam_tpu_torch.core.se3 import T_FIX_OPTICAL
+from otslam_tpu_torch.pipeline.dataset import CaptureDataset
+from otslam_tpu_torch.sim.sensors import look_at_pose, render_rgbd
+from otslam_tpu_torch.sim.world import cardboard_room
+cfg = OTSLAMConfig.from_json(open({str(cfg_path)!r}).read())
+intr = PinholeIntrinsics.from_config(cfg.camera)
+ds = CaptureDataset({str(root)!r}, cfg.camera)
+for i in range(8):
+    a = 2 * np.pi * i / 8
+    pose = look_at_pose([1.5 + np.cos(a), 0.5 + np.sin(a), 0.5],
+                        [1.5, 0.5, 0.15])
+    d, c = render_rgbd(cardboard_room(), pose, intr, far=5.0)
+    ds.save_frame("Object_0", c.numpy().astype(np.uint8), d.numpy(),
+                  pose @ T_FIX_OPTICAL.T)
+""")
+    assert make.returncode == 0, make.stderr
+    rec = run_py(CLI, "reconstruct", "--dataset", str(root), "--config",
+                 str(cfg_path), "--auto-origin", "--device", "cpu")
+    assert rec.returncode == 0, rec.stderr
+    assert "Object_0: " in rec.stdout and "from 8 frames" in rec.stdout
+    r = report(rec)
+    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0, 0, 0]
+    ply = root / "3d_reconst" / "Object_0.ply"
+    ev = run_py(CLI, "eval", "--map", str(ply), "--gt-samples", "5000",
+                "--device", "cpu")
+    assert ev.returncode == 0, ev.stderr
+    metrics = json.loads(ev.stdout.splitlines()[0])
+    assert 0 < metrics["accuracy_cm"] < 2.0
+    r = report(ev)
+    assert not r["jax"] and r["launches"] == [0, 0, 0]
+
+
+def test_unported_options_raise():
+    from otslam_tpu_torch.config import ReconstructionConfig
+    from otslam_tpu_torch.pipeline.reconstruct import (fuse_frames,
+                                                       reconstruct_frames)
+    with pytest.raises(ValueError, match="backend"):
+        fuse_frames([], [], [], None, ReconstructionConfig(), backend="xla")
+    with pytest.raises(NotImplementedError, match="ROADMAP M4"):
+        reconstruct_frames(None, None, output="mesh", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
+        reconstruct_frames(None, None, refine="pgo", device="cpu")
+
+
+def test_missing_cuda_raises_instead_of_running_on_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    from otslam_tpu_torch.eval.metrics import evaluate_map
+    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_block_volume(TSDFConfig(dims=(8, 8, 8)), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_map([[0.0, 0.0, 0.0]], [[1.0, 0.0, 0.0]], device="cuda")
+    # the CLI's default device is CUDA: it fails rather than use the CPU
+    from otslam_tpu_torch.core.io import write_ply
+    ply = str(tmp_path / "map.ply")
+    write_ply(ply, [[1.5, 0.5, 0.3], [1.6, 0.5, 0.3]])
+    proc = run_py(CLI, "eval", "--map", ply, "--gt-samples", "10")
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
+    if _build.nvcc_path() is not None:
+        pytest.skip("this machine has nvcc")
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load()
+    assert not list(tmp_path.iterdir())
