@@ -18,14 +18,29 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    reconstruct_object after dataset loading) with the default
    ReconstructionConfig and auto_volume_config, then write_ply -> read_ply
    -> evaluate_map against the 50k-point scenario GT; every kernel must
-   have launched and the accuracy must be < 1 cm.
+   have launched and the accuracy must be < 1 cm;
+5. K4 windowed nearest neighbour against its plain version at 50k x 50k
+   (bit-identical d^2 and index on every row) and against K3 (identical on
+   every row whose nearest neighbour lies within the 0.05 m radius, >= the
+   radius elsewhere), with CUDA-event times for K4, its plain version and
+   K3;
+6. registration path: the phase-4 capture with its poses drifted by
+   compounding odometry noise goes through reconstruct_frames with
+   refine="icp" and refine="pgo", then write_ply -> read_ply ->
+   evaluate_map(use_icp=True); then ScanLocalizer registers a 1440-beam
+   scan against the cardboard room's 0.05 m grid. K4 must have launched,
+   pgo must lower the drifted trajectory's translation RMSE, and the scan
+   must localize to < 4 cm and < 0.02 rad.
 
-The line before the last is the kernels' JSON record; the last line is
+Each path (phases 4 and 6) is driven with the launch counters set to 0
+just before it and read just after. The line before the last two is the
+kernels' JSON record, then the nvidia-smi name/power line; the last line is
 {"ok": true, "device": {...}}. JAX and otslam_tpu are never imported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,6 +54,7 @@ CAPTURE_RADIUS = 1.0      # m, as eval/headline.py's capture circles
 CAPTURE_HEIGHT = 0.5      # m
 SRC_POINTS = 100_000      # the default surface_samples
 GT_POINTS = 50_000        # the eval protocol's GT samples
+NN_RADIUS = 0.05          # EvalConfig.icp_threshold
 
 
 class SmokeFailure(RuntimeError):
@@ -206,6 +222,159 @@ def phase_k3(dev):
     return {"max_abs_err": dist_err, "ms": ms, "plain_ms": plain_ms}
 
 
+def phase_k4(dev):
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch.eval.scenarios import scenario_gt
+    from otslam_tpu_torch.kernels import nn
+    gt_np = scenario_gt("cardboard", GT_POINTS)
+    rng = np.random.default_rng(1)
+    src_np = scenario_gt("cardboard", GT_POINTS, seed=1) + rng.normal(
+        0, 0.004, (GT_POINTS, 3)).astype(np.float32)
+    window, axis = nn.auto_nn_window(src_np, gt_np, NN_RADIUS)
+    nchunks = -(-GT_POINTS // nn.DST_CHUNK)
+    check(window < nchunks, f"K4 window {window} covers all {nchunks} "
+          "chunks: the workload would not exercise the windowed scan")
+    # both sorted on the widest axis, as icp._sorted_for_window does
+    gt = torch.as_tensor(gt_np, device=dev)
+    src = torch.as_tensor(src_np, device=dev)
+    gt = gt[torch.argsort(gt[:, axis], stable=True)]
+    src = src[torch.argsort(src[:, axis], stable=True)]
+    mask = torch.ones(GT_POINTS, dtype=torch.bool, device=dev)
+    dstp, dmaskp, c0, c1 = nn.window_ranges(src, gt, mask, NN_RADIUS, axis)
+    d_k, i_k = nn.nn_min_windowed(src, dstp, dmaskp, c0, c1)
+    d_p, i_p = nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1)
+    d_3, i_3 = nn.nn_min(src, gt, mask)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(d_k, d_p)) and bool(torch.equal(i_k, i_p)),
+          f"K4 differs from its plain version at "
+          f"{int(((d_k != d_p) | (i_k != i_p)).sum())} rows")
+    inl = d_3.sqrt() < NN_RADIUS
+    check(bool(torch.equal(d_k[inl], d_3[inl]))
+          and bool(torch.equal(i_k[inl], i_3[inl])),
+          "K4 differs from K3 on rows with a neighbour within the radius")
+    check(bool((d_k[~inl].sqrt() >= NN_RADIUS).all()),
+          "K4 gives d < radius on a row whose nearest neighbour is farther")
+    scanned = float(((c1 - c0).clamp(min=0)).float().mean())
+    ms = cuda_ms(lambda: nn.nn_min_windowed(src, dstp, dmaskp, c0, c1), 10)
+    plain_ms = cuda_ms(
+        lambda: nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1), 3)
+    k3_ms = cuda_ms(lambda: nn.nn_min(src, gt, mask), 10)
+    wrapper_ms = cuda_ms(lambda: nn.nn_distance_radius(
+        src, gt, NN_RADIUS, window_chunks=window, axis=axis), 10)
+    log(f"K4 windowed nn: {GT_POINTS} x {GT_POINTS}, radius {NN_RADIUS}, "
+        f"axis {axis}, auto window {window} of {nchunks} chunks, mean "
+        f"chunks scanned per tile {scanned:.2f}, in-radius rows "
+        f"{int(inl.sum())}, identical to its plain version on every row "
+        f"and to K3 on every in-radius row; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, K3 {k3_ms:.4f} ms, nn_distance_radius "
+        f"(ranges + K4 + recompute) {wrapper_ms:.4f} ms")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "k3_ms": k3_ms}
+
+
+def drift(exts, seed: int = 0, t_sigma: float = 0.012,
+          r_sigma: float = 0.008):
+    """Compounding odometry drift (tests/test_refine.py's perturb): per-step
+    errors compound along the trajectory, frame 0 exact."""
+    import numpy as np
+
+    from otslam_tpu_torch.core.se3 import euler_xyz_to_matrix, se3
+    rng = np.random.default_rng(seed)
+    out = [exts[0]]
+    acc = np.eye(4)
+    for e in exts[1:]:
+        dR = euler_xyz_to_matrix(*rng.normal(0, r_sigma, 3))
+        dt = rng.normal(0, t_sigma, 3)
+        acc = se3(dR, dt) @ acc
+        out.append((acc @ e).astype(np.float32))
+    return np.stack(out)
+
+
+def phase_registration(batch, intr, cfg, dev, gt):
+    """The registration path (phase 6): refine="icp" and "pgo" on the
+    drifted capture, each through PLY and the ICP-aligned eval, then scan
+    localization. Fails on a non-finite or missing result, a pgo that does
+    not lower the drifted translation RMSE, or a localization off by
+    >= 4 cm / 0.02 rad."""
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch.config import LidarConfig
+    from otslam_tpu_torch.core import io as tio
+    from otslam_tpu_torch.eval.metrics import evaluate_map
+    from otslam_tpu_torch.mapping.localize import ScanLocalizer
+    from otslam_tpu_torch.pipeline.reconstruct import reconstruct_frames
+    from otslam_tpu_torch.pipeline.refine import trajectory_error
+    from otslam_tpu_torch.sim.sensors import render_lidar
+    from otslam_tpu_torch.sim.world import cardboard_room
+
+    drifted = dataclasses.replace(batch,
+                                  extrinsics=drift(batch.extrinsics))
+    t_odo, r_odo = trajectory_error(drifted.extrinsics, batch.extrinsics)
+    log(f"registration: drifted odometry RMSE {t_odo:.6f} m, "
+        f"{r_odo:.6f} rad")
+    errors = {}
+    for refine in ("icp", "pgo"):
+        stages: dict = {}
+        t0 = time.perf_counter()
+        res = reconstruct_frames(drifted, intr, cfg, backend="pallas",
+                                 auto_origin=True, refine=refine,
+                                 device=dev, seed=0, timings=stages)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "Object_0.ply")
+            tio.write_ply(path, res.points, colors=res.colors,
+                          normals=res.normals)
+            cloud = tio.read_ply(path)["points"]
+        t1 = time.perf_counter()
+        m = evaluate_map(cloud, gt, use_icp=True, device=dev)
+        torch.cuda.synchronize()
+        stages["eval"] = time.perf_counter() - t1
+        total = time.perf_counter() - t0
+        t_err, r_err = trajectory_error(res.extrinsics, batch.extrinsics)
+        errors[refine] = t_err
+        log(f"refine={refine} stages (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in stages.items())
+            + f", total {total:.4f}")
+        log(f"refine={refine}: trajectory RMSE {t_err:.6f} m, {r_err:.6f} "
+            f"rad (drifted {t_odo:.6f} m, {r_odo:.6f} rad); cloud "
+            f"{len(cloud)} points, eval ICP fitness {m.icp_fitness:.4f} "
+            f"rmse {m.icp_rmse:.6f}, accuracy {m.accuracy_cm:.4f} cm, "
+            f"completeness {m.completeness_cm:.4f} cm")
+        check(cloud.ndim == 2 and cloud.shape[1] == 3 and len(cloud) > 0,
+              f"refine={refine}: cloud shape {cloud.shape}")
+        check(bool(np.isfinite(cloud).all()),
+              f"refine={refine}: cloud has non-finite points")
+        check(np.isfinite([m.accuracy_cm, m.completeness_cm,
+                           m.icp_fitness]).all(),
+              f"refine={refine}: non-finite metrics {m}")
+    check(errors["pgo"] < t_odo,
+          f"pgo translation RMSE {errors['pgo']} m is not below the "
+          f"drifted odometry's {t_odo} m")
+
+    lidar = LidarConfig()
+    scene = cardboard_room()
+    angles = np.linspace(0, 2 * np.pi, lidar.num_beams,
+                         endpoint=False).astype(np.float32)
+    true = (0.6, -1.1, 0.8)
+    scan = render_lidar(scene, *true, angles, lidar.range_min,
+                        lidar.range_max, device=dev)
+    prior = (true[0] + 0.08, true[1] - 0.06, true[2] + 0.07)
+    t0 = time.perf_counter()
+    loc = ScanLocalizer(scene.occupancy_grid(0.05), device=dev)
+    pose = loc.localize(scan, angles, prior)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pos_err = float(np.hypot(pose.x - true[0], pose.y - true[1]))
+    yaw_err = abs(pose.yaw - true[2])
+    log(f"localize: {lidar.num_beams} beams, map {len(loc._map_np)} cells, "
+        f"prior off 0.1000 m / 0.0700 rad -> off {pos_err:.6f} m / "
+        f"{yaw_err:.6f} rad, fitness {pose.fitness:.4f}, {secs:.4f} s")
+    check(pos_err < 0.04 and yaw_err < 0.02,
+          f"localization off by {pos_err} m, {yaw_err} rad")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -270,11 +439,14 @@ def main() -> int:
     torch.cuda.synchronize()
     k3 = phase_k3(dev)
     torch.cuda.synchronize()
+    k4 = phase_k4(dev)
+    torch.cuda.synchronize()
     del depths, colors, exts, band, vis
 
     # --- 4. main path -----------------------------------------------------
     gt = scenario_gt("cardboard", GT_POINTS)
-    counters = (tc.classify_blocks, tc.fuse_blocks, nn.nn_min)
+    counters = (tc.classify_blocks, tc.fuse_blocks, nn.nn_min,
+                nn.nn_min_windowed)
     for fn in counters:
         fn.launches = 0
     stages: dict = {}
@@ -303,25 +475,46 @@ def main() -> int:
     check(cloud.ndim == 2 and cloud.shape[1] == 3 and len(cloud) > 0,
           f"cloud shape {cloud.shape}")
     check(bool(np.isfinite(cloud).all()), "cloud has non-finite points")
-    check(all(n > 0 for n in launches.values()),
+    path_kernels = ("classify_blocks", "fuse_blocks", "nn_min")
+    check(all(launches[k] > 0 for k in path_kernels),
           f"a kernel of the path never launched: {launches}")
     check(metrics.accuracy_cm < 1.0,
           f"accuracy {metrics.accuracy_cm} cm >= 1 cm")
+
+    # --- 6. registration path ---------------------------------------------
+    for fn in counters:
+        fn.launches = 0
+    phase_registration(batch, intr, cfg, dev, gt)
+    torch.cuda.synchronize()
+    reg_launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"registration path launches {reg_launches}")
+    check(all(n > 0 for n in reg_launches.values()),
+          f"a kernel of the registration path never launched: "
+          f"{reg_launches}")
     check("jax" not in sys.modules, "jax was imported")
+
+    def counts(name):
+        return {"launches": launches[name] + reg_launches[name],
+                "launches_by_path": {"reconstruct": launches[name],
+                                     "registration": reg_launches[name]}}
 
     kernels = [
         {"name": "K1 block TSDF fusion", "route": "cuda",
          "source": "otslam_tpu_torch/csrc/tsdf_fuse.cu",
          "replaces": "otslam_tpu/kernels/tsdf_pallas.py:92",
-         "launches": launches["fuse_blocks"], **k1},
+         **counts("fuse_blocks"), **k1},
         {"name": "K2 block classification", "route": "cuda",
          "source": "otslam_tpu_torch/csrc/tsdf_classify.cu",
          "replaces": "otslam_tpu/kernels/tsdf_pallas.py:378",
-         "launches": launches["classify_blocks"], **k2},
+         **counts("classify_blocks"), **k2},
         {"name": "K3 nearest neighbour", "route": "cuda",
          "source": "otslam_tpu_torch/csrc/nn.cu",
          "replaces": "otslam_tpu/kernels/nn.py:49",
-         "launches": launches["nn_min"], **k3},
+         **counts("nn_min"), **k3},
+        {"name": "K4 windowed nearest neighbour", "route": "cuda",
+         "source": "otslam_tpu_torch/csrc/nn.cu",
+         "replaces": "otslam_tpu/kernels/nn.py:200",
+         **counts("nn_min_windowed"), **k4},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

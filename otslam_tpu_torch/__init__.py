@@ -4,14 +4,18 @@ The port mirrors otslam_tpu's module paths, so each counterpart is found by
 name; otslam_tpu stays the reference the port is tested against. This
 package never imports jax or otslam_tpu.
 
-Layer map of the first slice (per-object reconstruction and its eval):
-  core/        camera model, SE(3)/frames, PLY/pose/depth io, volume io
-  kernels/     TSDF fusion (dense and block-sparse), resampling, NN/chamfer;
-               the hand-written CUDA kernels live in csrc/ and are built
-               on first use by kernels/_build.py
-  pipeline/    dataset reader + frames -> TSDF -> point cloud
-  sim/         analytic scenes and the RGB-D renderer (test/benchmark data)
-  eval/        accuracy/completeness metrics and GT scenarios
+Layer map of the ported slices (per-object reconstruction with its eval,
+and registration):
+  core/        camera model, SE(3)/frames, PLY/pose/depth io, volume io,
+               occupancy grid
+  kernels/     TSDF fusion (dense and block-sparse), resampling, NN/chamfer
+               (full and radius-windowed), ICP, frame-to-model tracking,
+               pose graph; the hand-written CUDA kernels live in csrc/ and
+               are built on first use by kernels/_build.py
+  pipeline/    dataset reader, pose refinement, frames -> TSDF -> cloud
+  mapping/     scan-to-map localization
+  sim/         analytic scenes, RGB-D and planar LiDAR renderers
+  eval/        accuracy/completeness metrics (optionally ICP-aligned), GT
 
 Every function that takes a ``device`` argument runs there; a CUDA device
 requested on a machine without CUDA raises instead of running on the CPU.

@@ -41,8 +41,9 @@ def _add_reconstruct(sub):
                    help="center each object's volume on its observed geometry")
     p.add_argument("--refine", default="none",
                    choices=["none", "icp", "f2m", "pgo"],
-                   help="trajectory refinement before fusing (not ported "
-                        "yet: only 'none' runs)")
+                   help="trajectory refinement before fusing: "
+                        "frame-to-frame ICP, frame-to-model tracking, or "
+                        "tracking + loop closures + pose graph")
     p.add_argument("--config", default=None, help="config JSON file")
     _add_device(p)
 
@@ -115,7 +116,7 @@ def main(argv=None):
     p.add_argument("--gt", default=None, help="GT ply (overrides scenario)")
     p.add_argument("--gt-samples", type=int, default=50000)
     p.add_argument("--icp", action="store_true",
-                   help="ICP-align the GT first (not ported yet)")
+                   help="ICP-align the GT onto the map first")
     _add_device(p)
 
     args = ap.parse_args(argv)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -15,3 +16,10 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             f"(torch {torch.__version__}); pass device='cpu' to run the "
             "plain PyTorch path")
     return dev
+
+
+def to_f32(x, dev: torch.device) -> torch.Tensor:
+    """A float32 tensor of `x` (array, nested list or tensor) on `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=dev)

@@ -53,6 +53,8 @@ SIGNATURES = {
                     _F, _F, _F, _F, _F, _F, _F, _F,     # ox oy oz vs fx fy cx cy
                     _F, _F, _P],                        # trunc 1/trunc stream
     "otslam_nn": [_P, _P, _I, _I, _P, _P, _P],          # src dst n m bd bi stream
+    "otslam_nn_window": [_P, _P, _P, _P, _I, _I,        # src dst c0 c1 n mp
+                         _P, _P, _P],                   # bd bi stream
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -329,18 +329,22 @@ def pack_rgb(color: torch.Tensor) -> torch.Tensor:
 
 
 def integrate_frames_sparse(vol: BlockTSDFVolume, depths, colors, extrinsics,
-                            intr: PinholeIntrinsics) -> BlockTSDFVolume:
+                            intr: PinholeIntrinsics,
+                            max_active: int | None = None) -> BlockTSDFVolume:
     """Fuse a batch of frames through the block-sparse path.
 
     depths (N,H,W) f32 meters (0 invalid), colors (N,H,W,3) [0,255],
     extrinsics (N,4,4) world->camera, all on the volume's device. The
     volume's tensors are updated in place (the JAX function donates them)
-    and the volume is returned. Same semantics as the JAX function with an
-    exact active list in place of its `max_active` capacity."""
+    and the volume is returned. Same semantics as the JAX function:
+    max_active integrates only each frame's max_active lowest active block
+    ids; None (an exact active list) equals any capacity that never
+    binds."""
     # tsdf_cuda builds on this module's plain functions, so it is imported
     # here rather than at the top
     from otslam_tpu_torch.kernels.tsdf_cuda import integrate_frames_cuda
-    return integrate_frames_cuda(vol, depths, colors, extrinsics, intr)
+    return integrate_frames_cuda(vol, depths, colors, extrinsics, intr,
+                                 max_active)
 
 
 def block_to_dense(vol: BlockTSDFVolume) -> TSDFVolume:

@@ -23,7 +23,9 @@ bf16 hi/lo depth split, lane-shifted planes and the half-res colour
 pyramid; auto_patch_rows / auto_depth_config / auto_depth_win /
 auto_color_rows; the window starts and the slab-coverage test with its
 near-field fallback; smem_max_active and VMEM sizing; FPC frame chunking;
-auto_max_active (the work list is exact).
+auto_max_active (the work list is exact). An explicit `max_active` keeps
+the JAX package's capacity semantics: each frame integrates only its
+`max_active` lowest active block ids.
 """
 
 from __future__ import annotations
@@ -198,16 +200,22 @@ fuse_blocks.launches = 0
 
 
 def integrate_frames_cuda(vol: BlockTSDFVolume, depths, colors, extrinsics,
-                          intr: PinholeIntrinsics) -> BlockTSDFVolume:
+                          intr: PinholeIntrinsics,
+                          max_active: int | None = None) -> BlockTSDFVolume:
     """Fuse a frame batch into `vol` in place (see the module docstring);
     returns `vol`. depths (N,H,W), colors (N,H,W,3) in [0,255], extrinsics
-    (N,4,4) world->camera, on the volume's device."""
+    (N,4,4) world->camera, on the volume's device. max_active caps each
+    frame's active blocks to its max_active lowest ids, as the JAX
+    package's compact_ids does; None integrates every active block.
+    Creation is not capped: it takes the whole band."""
     nb = vol.num_blocks
     depths = depths.to(torch.float32)
     if depths.shape[0] == 0:
         return vol
     band, visible = classify_blocks(vol.meta, depths, extrinsics, intr)
     created, active = created_and_active(band, visible, vol.created[:nb])
+    if max_active is not None:
+        active &= torch.cumsum(active, dim=1) <= max_active
     ids, ptr, frames = active_worklist(active)
     fuse_blocks(vol, ids, ptr, frames, depths, pack_rgb(colors), extrinsics,
                 intr)

@@ -11,7 +11,9 @@ otslam_tpu/pipeline/reconstruct.py).
 
 ``backend`` keeps the JAX package's names: "pallas" and "sparse" both reach
 the block-sparse path (kernels/tsdf_block.py), which launches the CUDA
-kernels for CUDA tensors; "dense" reaches kernels/tsdf.py.
+kernels for CUDA tensors; "dense" reaches kernels/tsdf.py. ``refine``
+corrects the capture poses before the main fusion (pipeline/refine.py):
+"icp", "f2m" or "pgo".
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from otslam_tpu_torch.config import ReconstructionConfig
 from otslam_tpu_torch.core import io as tio
 from otslam_tpu_torch.core.camera import PinholeIntrinsics
-from otslam_tpu_torch.device import resolve_device
+from otslam_tpu_torch.device import resolve_device, to_f32
 from otslam_tpu_torch.kernels.sampling import resample_points
 from otslam_tpu_torch.kernels.tsdf import (
     extract_surface_points, integrate_frames, make_volume)
@@ -36,8 +38,12 @@ from otslam_tpu_torch.kernels.tsdf_block import (
     BlockTSDFVolume, block_to_dense, extract_surface_points_sparse,
     integrate_frames_sparse, make_block_volume)
 from otslam_tpu_torch.pipeline.dataset import CaptureDataset, FrameBatch
+from otslam_tpu_torch.pipeline.refine import (
+    refine_trajectory, refine_trajectory_f2m, refine_trajectory_pgo)
 
 BACKENDS = ("pallas", "sparse", "dense")
+REFINERS = {"icp": refine_trajectory, "f2m": refine_trajectory_f2m,
+            "pgo": refine_trajectory_pgo}
 
 
 def _observed_world_points(batch, intr: PinholeIntrinsics,
@@ -158,12 +164,8 @@ class ReconstructionResult:
     normals: np.ndarray | None  # (M, 3) or None
     num_frames: int
     raw_surface_count: int
-
-
-def _to_device(x, dev: torch.device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=dev, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    # (N, 4, 4) world->camera poses the fusion used (refined or as given)
+    extrinsics: np.ndarray | None = None
 
 
 def fuse_frames(depths, colors, extrinsics, intr: PinholeIntrinsics,
@@ -177,7 +179,7 @@ def fuse_frames(depths, colors, extrinsics, intr: PinholeIntrinsics,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
-    depths, colors, extrinsics = (_to_device(x, dev)
+    depths, colors, extrinsics = (to_f32(x, dev)
                                   for x in (depths, colors, extrinsics))
     if backend == "dense":
         dtype = torch.bfloat16 if cfg.tsdf.use_bfloat16 else torch.float32
@@ -243,21 +245,25 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
                        draws: torch.Tensor | None = None,
                        timings: dict | None = None) -> ReconstructionResult:
     """The per-object pipeline after dataset loading: (auto-sized volume)
-    -> fusion -> surface extraction, sampling and floor filter.
+    -> (pose refinement) -> fusion -> surface extraction, sampling and
+    floor filter.
 
     batch holds host arrays, as CaptureDataset.load_object returns them;
     the work runs on `device`. auto_origin=True centers (and, unless
     auto_dims is False, sizes) the volume on the observed geometry.
+    refine: 'none' trusts the dataset poses (the reference trusts TF),
+    'icp' chains frame-to-frame ICP corrections, 'f2m' tracks each frame
+    against the fused TSDF, 'pgo' adds loop-closure edges and a pose-graph
+    solve; only the refined extrinsics feed the main fusion.
     `timings`, when given, receives the seconds of each stage
-    ("auto_volume", "fuse", "extract"), each ending in a device sync."""
+    ("auto_volume", "refine", "fuse", "extract"), each ending in a device
+    sync."""
     if output != "cloud":
         raise NotImplementedError(
             f"output={output!r}: mesh output needs kernels/marching.py, "
             "which the port has not reached yet (ROADMAP M4, marching)")
-    if refine != "none":
-        raise NotImplementedError(
-            f"refine={refine!r}: trajectory refinement arrives with the "
-            "registration slice (ROADMAP M7)")
+    if refine != "none" and refine not in REFINERS:
+        raise ValueError(f"unknown refine {refine!r}")
     cfg = cfg or ReconstructionConfig()
     dev = resolve_device(device)
     t0 = time.perf_counter()
@@ -268,6 +274,11 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
             cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
                 cfg.tsdf, origin=auto_volume_origin(batch, intr, cfg)))
     t0 = _stage(timings, "auto_volume", t0, dev)
+    if refine != "none":
+        refined = REFINERS[refine](batch.depths, batch.colors,
+                                   batch.extrinsics, intr, cfg, device=dev)
+        batch = dataclasses.replace(batch, extrinsics=refined.extrinsics)
+        t0 = _stage(timings, "refine", t0, dev)
     vol = fuse_frames(batch.depths, batch.colors, batch.extrinsics, intr,
                       cfg, backend, densify=False, device=dev)
     t0 = _stage(timings, "fuse", t0, dev)
@@ -275,6 +286,7 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
                                  draws=draws)
     _stage(timings, "extract", t0, dev)
     res.num_frames = len(batch.names)
+    res.extrinsics = np.asarray(batch.extrinsics)
     return res
 
 

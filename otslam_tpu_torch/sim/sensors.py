@@ -1,5 +1,5 @@
-"""Analytic RGB-D camera (counterpart of the camera half of
-otslam_tpu/sim/sensors.py; the LiDAR renderers come with the perception
+"""Analytic RGB-D camera and planar LiDAR (counterpart of
+otslam_tpu/sim/sensors.py; render_lidar_path comes with the perception
 slice).
 
 Exact ray-primitive intersections, vectorized over pixels x primitives in
@@ -170,3 +170,28 @@ def render_rgbd(scene: Scene, cam_pose_world: np.ndarray,
     palette = torch.tensor(colors, dtype=torch.float32, device=dev) * 255.0
     color = torch.where((depth > 0)[..., None], palette[best], 0.0)
     return depth, color
+
+
+# ---------------------------------------------------------------------------
+# 2D LiDAR
+# ---------------------------------------------------------------------------
+
+def render_lidar(scene: Scene, robot_x: float, robot_y: float,
+                 robot_yaw: float, angles, range_min: float = 0.12,
+                 range_max: float = 10.0, sensor_z: float = 0.17,
+                 device="cpu") -> torch.Tensor:
+    """Planar scan at height sensor_z from the robot pose (x, y, yaw);
+    angles (B,) in the robot frame. Returns ranges (B,) f32 on `device`,
+    +inf = no return."""
+    dev = resolve_device(device)
+    ga = torch.as_tensor(angles, dtype=torch.float32, device=dev) \
+        + torch.tensor(robot_yaw, dtype=torch.float32, device=dev)
+    dirs = torch.stack([torch.cos(ga), torch.sin(ga), torch.zeros_like(ga)],
+                       dim=-1)
+    o = torch.stack([torch.full_like(ga, robot_x),
+                     torch.full_like(ga, robot_y),
+                     torch.full_like(ga, sensor_z)], dim=-1)
+    ts = torch.stack([_ray_solid(o, dirs, s) for s in scene.all_solids()])
+    tmin = ts.amin(dim=0)
+    return torch.where((tmin >= range_min) & (tmin <= range_max), tmin,
+                       torch.inf)

@@ -7,8 +7,8 @@ surface points (eval/scenarios.py) — no meshes, no physics, fully
 deterministic.
 
 The default room mirrors gazebo_turtlebot3's test rooms: rectangular walls,
-a few objects (cardboard box, table + chairs, cones). The occupancy-grid
-raster (Scene.occupancy_grid) comes with the perception slice.
+a few objects (cardboard box, table + chairs, cones); Scene.occupancy_grid
+rasterizes its footprint into a 2D map.
 """
 
 from __future__ import annotations
@@ -78,6 +78,38 @@ class Scene:
 
     def all_solids(self) -> Tuple:
         return tuple(self.objects) + self.wall_boxes()
+
+    def occupancy_grid(self, resolution: float = 0.05,
+                       include_objects: bool = True):
+        """Rasterize the scene footprint into a ROS-convention occupancy
+        grid (host numpy data). Returns an OccupancyGrid2D."""
+        from otslam_tpu_torch.core.grid import OccupancyGrid2D
+
+        xmin, xmax, ymin, ymax = self.room
+        t = self.wall_thickness
+        ox, oy = xmin - 2 * t, ymin - 2 * t
+        W = int(np.ceil((xmax - xmin + 4 * t) / resolution))
+        H = int(np.ceil((ymax - ymin + 4 * t) / resolution))
+        xs = ox + (np.arange(W) + 0.5) * resolution
+        ys = oy + (np.arange(H) + 0.5) * resolution
+        gx, gy = np.meshgrid(xs, ys)  # (H, W)
+        occ = np.zeros((H, W), bool)
+        solids = self.all_solids() if include_objects else self.wall_boxes()
+        for s in solids:
+            occ |= _footprint_mask(s, gx, gy)
+        data = np.where(occ, 100, 0).astype(np.int8)
+        return OccupancyGrid2D(data, resolution, (float(ox), float(oy)))
+
+
+def _footprint_mask(solid, gx, gy):
+    if isinstance(solid, Box):
+        c, s = np.cos(-solid.yaw), np.sin(-solid.yaw)
+        lx = (gx - solid.center[0]) * c - (gy - solid.center[1]) * s
+        ly = (gx - solid.center[0]) * s + (gy - solid.center[1]) * c
+        return ((np.abs(lx) <= solid.size[0] / 2)
+                & (np.abs(ly) <= solid.size[1] / 2))
+    r2 = (gx - solid.center[0]) ** 2 + (gy - solid.center[1]) ** 2
+    return r2 <= solid.radius ** 2
 
 
 def cardboard_room() -> Scene:

@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3 of otslam_tpu_torch against their plain PyTorch
+"""Kernels K1, K2, K3, K4 of otslam_tpu_torch against their plain PyTorch
 versions, on a CUDA GPU. Every test here is marked `cuda` and skips on a
 machine without one; the same comparisons at the main path's full size are
 phases of chip_smoke.py.
@@ -107,6 +107,64 @@ def test_nn_kernel_matches_plain(dev):
     assert torch.equal(dk, dp) and torch.equal(ik, ip)
     d_all, i_all = nn.nn_min(src, dst, torch.zeros_like(mask))
     assert torch.all(d_all == nn.BIG) and torch.all(i_all == 0)
+
+
+def windowed_clouds(n, m, seed=5):
+    """src and dst sorted on z, as ICP sorts them for the windowed scan."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    dst = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
+    dst[100:200] = dst[:100]                # exact ties: lowest index wins
+    return src[np.argsort(src[:, 2])], dst[np.argsort(dst[:, 2])]
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "masked",
+                                  "ragged"])
+def test_windowed_nn_kernel_matches_plain(dev, case):
+    """K4 against its plain version: bit-identical d^2 and index on every
+    row, on sorted and unsorted destinations, a fully masked one, and a
+    source whose length is no multiple of the 256-row tile."""
+    n = 3000 if case == "ragged" else 2816
+    src, dst = windowed_clouds(n, 6000)
+    if case == "unsorted":
+        dst = dst[np.random.default_rng(1).permutation(len(dst))]
+    mask = np.ones(len(dst), bool)
+    if case == "masked":
+        mask[:] = False
+    src, dst, mask = (torch.as_tensor(a, device=dev)
+                      for a in (src, dst, mask))
+    dstp, dmaskp, c0, c1 = nn.window_ranges(src, dst, mask, 0.1, 2)
+    spans = c1 - c0
+    if case == "unsorted":
+        assert torch.all(spans == dstp.shape[0] // nn.DST_CHUNK)
+    else:
+        assert int(spans.max()) < dstp.shape[0] // nn.DST_CHUNK
+    before = nn.nn_min_windowed.launches
+    dk, ik = nn.nn_min_windowed(src, dstp, dmaskp, c0, c1)
+    dp, ip = nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1)
+    assert nn.nn_min_windowed.launches == before + 1
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    if case == "masked":
+        assert torch.all(dk == nn.BIG) and torch.all(ik == 0)
+        return
+    # against the full scan (K3): exact wherever the NN is within radius
+    d3, i3 = nn.nn_min(src, dst, mask)
+    inl = d3.sqrt() < 0.1
+    assert inl.any()
+    assert torch.equal(dk[inl], d3[inl]) and torch.equal(ik[inl], i3[inl])
+    assert torch.all(dk[~inl].sqrt() >= 0.1)
+
+
+def test_windowed_nn_refuses_bad_operands(dev):
+    src, dst = windowed_clouds(512, 2048)
+    src, dst = torch.as_tensor(src, device=dev), torch.as_tensor(dst,
+                                                                 device=dev)
+    mask = torch.ones(2048, dtype=torch.bool, device=dev)
+    dstp, dmaskp, c0, c1 = nn.window_ranges(src, dst, mask, 0.1, 2)
+    with pytest.raises(ValueError, match="chunk-padded"):
+        nn.nn_min_windowed(src, dstp[:-1], dmaskp[:-1], c0, c1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        nn.nn_min_windowed(src, dstp, dmaskp, c0.cpu(), c1)
 
 
 def test_wrappers_refuse_mixed_devices(dev, frames):

@@ -88,8 +88,11 @@ def test_chamfer_and_evaluate_map_match_jax(clouds):
     tm = evaluate_map(src, dst)
     assert abs(tm.accuracy_cm - jm.accuracy_cm) <= 1e-3
     assert abs(tm.completeness_cm - jm.completeness_cm) <= 1e-3
-    with pytest.raises(NotImplementedError, match="registration slice"):
-        evaluate_map(src, dst, use_icp=True)
+    # the ICP-aligned protocol runs too (held against JAX in
+    # test_torch_refine.py)
+    tm_icp = evaluate_map(src, dst, use_icp=True)
+    assert 0.0 < tm_icp.icp_fitness <= 1.0
+    assert np.isfinite([tm_icp.accuracy_cm, tm_icp.completeness_cm]).all()
 
 
 def test_resample_with_jax_draws_is_index_exact():

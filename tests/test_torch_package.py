@@ -46,7 +46,8 @@ finally:
         "jax": "jax" in sys.modules,
         "otslam_tpu": "otslam_tpu" in sys.modules,
         "launches": [tsdf_cuda.classify_blocks.launches,
-                     tsdf_cuda.fuse_blocks.launches, nn.nn_min.launches]}))
+                     tsdf_cuda.fuse_blocks.launches, nn.nn_min.launches,
+                     nn.nn_min_windowed.launches]}))
 """
 
 
@@ -114,7 +115,7 @@ for i in range(8):
     assert rec.returncode == 0, rec.stderr
     assert "Object_0: " in rec.stdout and "from 8 frames" in rec.stdout
     r = report(rec)
-    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0, 0, 0]
+    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0, 0, 0, 0]
     ply = root / "3d_reconst" / "Object_0.ply"
     ev = run_py(CLI, "eval", "--map", str(ply), "--gt-samples", "5000",
                 "--device", "cpu")
@@ -122,7 +123,7 @@ for i in range(8):
     metrics = json.loads(ev.stdout.splitlines()[0])
     assert 0 < metrics["accuracy_cm"] < 2.0
     r = report(ev)
-    assert not r["jax"] and r["launches"] == [0, 0, 0]
+    assert not r["jax"] and r["launches"] == [0, 0, 0, 0]
 
 
 def test_unported_options_raise():
@@ -133,8 +134,8 @@ def test_unported_options_raise():
         fuse_frames([], [], [], None, ReconstructionConfig(), backend="xla")
     with pytest.raises(NotImplementedError, match="ROADMAP M4"):
         reconstruct_frames(None, None, output="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
-        reconstruct_frames(None, None, refine="pgo", device="cpu")
+    with pytest.raises(ValueError, match="refine"):
+        reconstruct_frames(None, None, refine="slam", device="cpu")
 
 
 def test_missing_cuda_raises_instead_of_running_on_cpu(tmp_path):

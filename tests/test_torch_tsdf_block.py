@@ -176,6 +176,34 @@ class TestBlockFusion:
                                       tvol.weight.numpy())
         assert back.grid_blocks == tvol.grid_blocks
 
+    def test_max_active_cap_matches_jax(self, frames):
+        """A capacity that binds integrates each frame's max_active lowest
+        active block ids, as the JAX package's compact_ids does; the
+        uncapped list fuses other blocks and differs from it."""
+        depths, colors, exts = frames
+        meta = ttb.make_block_volume(TCFG).meta
+        nb = ttb.make_block_volume(TCFG).num_blocks
+        band, vis = tc.classify_blocks(meta, t(depths), t(exts), T_SMALL)
+        _, active = tc.created_and_active(band, vis,
+                                          torch.zeros(nb, dtype=torch.bool))
+        per_frame = active.sum(dim=1)
+        k = int(per_frame.max()) * 2 // 3
+        assert (per_frame > k).any()
+        jvol = jtb.integrate_frames_sparse(
+            jtb.make_block_volume(JCFG), j(depths), j(colors), j(exts),
+            J_SMALL, max_active=k)
+        tvol = ttb.integrate_frames_sparse(ttb.make_block_volume(TCFG),
+                                           t(depths), t(colors), t(exts),
+                                           T_SMALL, max_active=k)
+        check_block_fusion(jvol, tvol, depths, exts)
+        free = ttb.integrate_frames_sparse(ttb.make_block_volume(TCFG),
+                                           t(depths), t(colors), t(exts),
+                                           T_SMALL)
+        # creation takes the whole band either way; only integration is cut
+        assert torch.equal(free.created, tvol.created)
+        lost = (free.weight.numpy() > 0) & (np.asarray(jvol.weight) == 0)
+        assert lost.sum() > 1000
+
     def test_pallas_contract(self):
         """Against the Pallas kernel (interpret mode, full-res colour) the
         port meets the JAX package's own Pallas contract

@@ -17,6 +17,7 @@ the share of marked voxels.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from otslam_tpu.core.camera import PinholeIntrinsics as JIntr
 from otslam_tpu.sim.sensors import look_at_pose, render_rgbd
@@ -30,6 +31,12 @@ J_SMALL = JIntr(**SMALL_CAM)
 T_SMALL = TIntr(**SMALL_CAM)
 BOX_CENTER = (1.5, 0.5, 0.15)        # cardboard_room()'s box
 DEPTH_TRUNC = 3.0                    # CameraConfig.depth_trunc
+
+# The parity tests run thousands of small torch ops (ICP and tracking
+# loops) while JAX tests fill the other cores of a parallel run; torch's
+# default one-thread-per-core pool then oversubscribes the machine and
+# slows these files about fivefold. One intra-op thread each avoids that.
+torch.set_num_threads(1)
 
 
 def capture(n_frames: int, intr=J_SMALL, radius: float = 1.0,
@@ -102,3 +109,49 @@ def assert_fusion_matches(w_ref, t_ref, c_ref, w, t, c, amb,
     np.testing.assert_allclose(t[ok], t_ref[ok], rtol=0, atol=1e-5)
     ok3 = np.tile(ok, (1, 3)) if c.ndim == 2 else np.broadcast_to(ok, c.shape)
     np.testing.assert_allclose(c[ok3], c_ref[ok3], rtol=0, atol=1e-3)
+
+
+def lattice_box(center=BOX_CENTER, size=(0.5, 0.4, 0.3), yaw=0.3,
+                spacing: float = 0.012, jitter: float = 0.001,
+                seed: int = 0):
+    """Points and outward normals on the surface of an oriented box, on a
+    per-face lattice of `spacing` jittered by up to `jitter` (float32).
+
+    Every two points lie at least spacing - 2 * jitter apart, so a copy
+    moved by less than a third of that has one unambiguous nearest
+    neighbour per point: registration tests then agree between packages
+    whose NN distances round differently (the JAX package's XLA path
+    takes |a|^2 + |b|^2 - 2ab)."""
+    rng = np.random.default_rng(seed)
+    half = np.asarray(size, np.float64) / 2
+    pts, nrm = [], []
+    for axis in range(3):
+        u, v = [k for k in range(3) if k != axis]
+        # a margin of one spacing keeps the faces' lattices apart too
+        gu = np.arange(-half[u] + spacing, half[u] - spacing / 2, spacing)
+        gv = np.arange(-half[v] + spacing, half[v] - spacing / 2, spacing)
+        uu, vv = np.meshgrid(gu, gv, indexing="ij")
+        for sign in (-1.0, 1.0):
+            p = np.zeros((uu.size, 3))
+            p[:, u] = uu.ravel()
+            p[:, v] = vv.ravel()
+            p[:, axis] = sign * half[axis]
+            p[:, [u, v]] += rng.uniform(-jitter, jitter, (uu.size, 2))
+            n = np.zeros((uu.size, 3))
+            n[:, axis] = sign
+            pts.append(p)
+            nrm.append(n)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    pts = np.concatenate(pts) @ R.T + np.asarray(center)
+    nrm = np.concatenate(nrm) @ R.T
+    return pts.astype(np.float32), nrm.astype(np.float32)
+
+
+def small_motion(rot=(0.002, -0.003, 0.0025), trans=(0.0012, -0.001, 0.0008),
+                 about=BOX_CENTER):
+    """(4, 4) float64 rigid motion of a few mm, rotating about `about`."""
+    from otslam_tpu.core.se3 import euler_xyz_to_matrix, se3
+    R = euler_xyz_to_matrix(*rot)
+    c = np.asarray(about, np.float64)
+    return se3(R, c - R @ c + np.asarray(trans))
