@@ -5,16 +5,21 @@ name; otslam_tpu stays the reference the port is tested against. This
 package never imports jax or otslam_tpu.
 
 Layer map of the ported slices (per-object reconstruction with its eval,
-and registration):
+registration, and perception with the closed-loop mission):
   core/        camera model, SE(3)/frames, PLY/pose/depth io, volume io,
                occupancy grid
   kernels/     TSDF fusion (dense and block-sparse), resampling, NN/chamfer
                (full and radius-windowed), ICP, frame-to-model tracking,
-               pose graph; the hand-written CUDA kernels live in csrc/ and
+               pose graph, ray cast, scan diff, evidence grids, host
+               clustering; the hand-written CUDA kernels live in csrc/ and
                are built on first use by kernels/_build.py
   pipeline/    dataset reader, pose refinement, frames -> TSDF -> cloud
-  mapping/     scan-to-map localization
-  sim/         analytic scenes, RGB-D and planar LiDAR renderers
+  mapping/     scan-to-map localization, virtual scanner, change detector,
+               batched perception ticks, object filters
+  mission/     tracker, visiting points, goal queue, manager, scanner
+               (host numpy)
+  sim/         analytic scenes, RGB-D and planar LiDAR renderers, the
+               closed-loop MissionRunner
   eval/        accuracy/completeness metrics (optionally ICP-aligned), GT
 
 Every function that takes a ``device`` argument runs there; a CUDA device

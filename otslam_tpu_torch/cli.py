@@ -2,6 +2,7 @@
 
   reconstruct   3d_model/reconstruct_rgbd[_filter|_gt].py, multi_reconstruct
   eval          eval/eval_*.py (analytic GT scenarios or a GT ply)
+  mission       closed-loop simulated mission (the Gazebo-equivalent run)
 
 Same flags as the JAX package's subcommands, plus ``--device``. Run as
 ``python -m otslam_tpu_torch.cli <subcommand> ...``.
@@ -12,6 +13,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
 
 def _add_device(p):
@@ -95,6 +97,122 @@ def _cmd_eval(args):
                       "icp_fitness": round(m.icp_fitness, 4)}))
 
 
+def _add_mission(sub):
+    p = sub.add_parser("mission", help="run a closed-loop simulated mission")
+    p.add_argument("--scenario", default="cardboard",
+                   choices=["cardboard", "cone", "table_chair", "full"])
+    p.add_argument("--workdir", required=True)
+    p.add_argument("--start", default="-2.0,-2.0,0.5")
+    p.add_argument("--max-ticks", type=int, default=300)
+    p.add_argument("--perception-batch", type=int, default=1,
+                   help="run K perception ticks as one batch (one ray-cast "
+                        "launch and one host transfer per K ticks)")
+    p.add_argument("--repeat", type=int, default=1,
+                   help="run the mission N times in-process; run 2+ "
+                        "measures ticks/s after the kernel build and "
+                        "first-use warm-up of run 1")
+    p.add_argument("--goal-list", default=None, metavar="FILE",
+                   help="run a scripted mission from a static goal list "
+                        "('id, label, x, y, theta_deg' per line; the "
+                        "goal_list.hpp equivalent) instead of the "
+                        "detection-driven loop")
+    p.add_argument("--localizer", action="store_true",
+                   help="estimate the robot pose by scan-to-map ICP "
+                        "(slam_toolbox-localization equivalent) instead of "
+                        "trusting odometry")
+    p.add_argument("--odom-noise", type=float, default=0.0, metavar="M",
+                   help="odometry drift stddev per meter traveled "
+                        "(captures then carry estimated poses, like TF on "
+                        "the reference robot)")
+    p.add_argument("--removed", action="store_true",
+                   help="seed the saved 2D map with an object reality "
+                        "lacks, engaging the removed-object check-point "
+                        "pipeline (diff_node.cpp:131-158)")
+    _add_device(p)
+
+
+def mission_runner(args, workdir: str, device, scripted: bool = False):
+    """The MissionRunner the `mission` command drives: the scenario with an
+    optional removed object in the saved map, the update-pipeline tracker
+    profile, and the flags' start pose, batch, odometry noise and
+    localizer (a scripted goal-list mission keeps the runner's defaults
+    for the last three, as the JAX package's CLI does)."""
+    import dataclasses as _dc
+
+    from otslam_tpu_torch.config import OTSLAMConfig, TrackerConfig
+    from otslam_tpu_torch.sim.runner import MissionRunner
+    from otslam_tpu_torch.sim.world import (
+        Box, cardboard_room, cone_room, full_room, table_chair_room)
+
+    scenes = {"cardboard": cardboard_room, "cone": cone_room,
+              "table_chair": table_chair_room, "full": full_room}
+    world = scenes[args.scenario]()
+    # --removed: the saved 2D map knows an object reality no longer has —
+    # the diff pipeline then reports REMOVED cells and the mission visits
+    # the removed-object check points (diff_node.cpp:131-158 semantics)
+    map_objects = ()
+    if args.removed:
+        map_objects = (Box((4.0, -4.0, 0.15), (0.5, 0.4, 0.3), 0.0,
+                           (0.7, 0.7, 0.7), "removed_box"),)
+    loop = {} if scripted else dict(
+        perception_batch=args.perception_batch,
+        odom_noise_per_m=args.odom_noise, use_localizer=args.localizer)
+    return MissionRunner(
+        scene_map=_dc.replace(world, objects=map_objects), scene_world=world,
+        workdir=workdir,
+        cfg=OTSLAMConfig(tracker=TrackerConfig.update_pipeline_profile()),
+        start_pose=tuple(float(v) for v in args.start.split(",")),
+        device=device, **loop)
+
+
+def _cmd_mission(args):
+    from otslam_tpu_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if args.goal_list:
+        # scripted mission (goal_list.hpp equivalent): no perception loop,
+        # the static targets run through the same queue -> FSM -> scanner
+        from otslam_tpu_torch.mission.goal_list import load_goal_list
+        runner = mission_runner(args, args.workdir, dev, scripted=True)
+        s = runner.run_static(load_goal_list(args.goal_list))
+        print(json.dumps({
+            "missions": s.missions_completed, "frames": s.frames_captured,
+            "labels": s.labels, "sim_time_s": round(s.sim_time, 1),
+            "dataset": os.path.join(args.workdir, "dataset")}))
+        return
+    runs = []
+    for rep in range(max(1, args.repeat)):
+        # fresh runner per repeat (identical mission); run 2+ measures
+        # steady-state throughput, after the one-time kernel build
+        wd = args.workdir if rep == 0 else f"{args.workdir}_r{rep}"
+        runner = mission_runner(args, wd, dev)
+        t0 = time.time()
+        s = runner.run(max_ticks=args.max_ticks)
+        wall = time.time() - t0
+        ticks = len(runner.trace)
+        runs.append({
+            "missions": s.missions_completed, "frames": s.frames_captured,
+            "stable_objects": s.stable_objects,
+            "sim_time_s": round(s.sim_time, 1), "labels": s.labels,
+            "ticks": ticks, "wall_s": round(wall, 2),
+            "ticks_per_sec": round(ticks / wall, 1) if wall > 0 else None,
+        })
+    out = dict(runs[-1])
+    out.update({
+        # wd survives the loop = the LAST repeat's workdir (the run whose
+        # stats are reported above)
+        "dataset": os.path.join(wd, "dataset"),
+        "platform": str(dev),
+        "perception_batch": args.perception_batch,
+        "removed_checks_visited": sorted(runner.sender.visited_removed_ids),
+        "use_localizer": args.localizer,
+        "odom_noise_per_m": args.odom_noise,
+    })
+    if len(runs) > 1:
+        out["runs"] = runs
+    print(json.dumps(out))
+
+
 def _load_cfg(args):
     from otslam_tpu_torch.config import OTSLAMConfig
     if getattr(args, "config", None):
@@ -118,9 +236,11 @@ def main(argv=None):
     p.add_argument("--icp", action="store_true",
                    help="ICP-align the GT onto the map first")
     _add_device(p)
+    _add_mission(sub)
 
     args = ap.parse_args(argv)
-    {"reconstruct": _cmd_reconstruct, "eval": _cmd_eval}[args.cmd](args)
+    {"reconstruct": _cmd_reconstruct, "eval": _cmd_eval,
+     "mission": _cmd_mission}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -51,7 +51,7 @@ class PinholeIntrinsics:
         y = (vv - self.cy) / self.fy
         return np.stack([x, y, np.ones_like(x)], axis=-1)
 
-    def pixel_rays(self, device: str | torch.device = "cpu") -> torch.Tensor:
+    def pixel_rays(self, device: str | torch.device = "cuda") -> torch.Tensor:
         """f32 pixel_rays_np as a tensor on `device` (computed on the host,
         copied once)."""
         return torch.as_tensor(self.pixel_rays_np(), device=device)

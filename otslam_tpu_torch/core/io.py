@@ -6,7 +6,7 @@ The reference's process boundaries are all files (SURVEY.md §5 checkpoint):
   * 3D objects / hybrid maps: .ply point clouds      [reconstruct_rgbd_filter.py:140]
 
 Counterpart of otslam_tpu/core/io.py for these two (the 2D map PGM + YAML
-formats come with the perception slice). PLY in both binary and ascii,
+formats come with the map tools, ROADMAP A). PLY in both binary and ascii,
 with point clouds (xyz[+rgb][+normals]) and triangle meshes; no Open3D.
 """
 

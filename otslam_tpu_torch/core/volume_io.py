@@ -33,7 +33,7 @@ def save_volume(path: str, vol) -> None:
         raise TypeError(type(vol))
 
 
-def load_volume(path: str, device="cpu"):
+def load_volume(path: str, device="cuda"):
     """The volume saved at `path` (by either package), on `device`."""
     with np.load(path) as z:
         kind = str(z["kind"])

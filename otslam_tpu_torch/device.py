@@ -7,9 +7,10 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """torch.device for `device` (None -> "cpu"). A CUDA device on a machine
-    without CUDA raises: the port never falls back to the CPU on its own."""
-    dev = torch.device("cpu" if device is None else device)
+    """torch.device for `device` (None -> "cuda:0", the card). A CUDA device
+    on a machine without CUDA raises: the port never falls back to the CPU
+    on its own; only an explicit "cpu" runs there."""
+    dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but CUDA is not available "

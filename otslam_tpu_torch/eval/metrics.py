@@ -25,7 +25,7 @@ class EvalMetrics:
 
 
 def evaluate_map(map_points, gt_points, use_icp: bool = False,
-                 cfg: EvalConfig | None = None, device="cpu") -> EvalMetrics:
+                 cfg: EvalConfig | None = None, device="cuda") -> EvalMetrics:
     """Accuracy and completeness of `map_points` against `gt_points`
     ((N, 3) arrays or tensors), computed on `device`. use_icp=True first
     aligns the GT onto the map (refine_alignment_icp semantics) with the

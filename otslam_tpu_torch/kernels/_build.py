@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-On first use the sources are compiled with nvcc into one shared library with
-a plain C interface, which is loaded with ctypes:
+On first use each source is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, which is loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/otslam_tpu_torch/<hash>/lib...so
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o      (one per source)
+    nvcc -shared -o build/otslam_tpu_torch/<hash>/lib...so *.o
 
 The library lands under ``build/`` at the root of the checkout, in a
 directory named by a hash of the sources and flags, so an edited source
@@ -35,8 +37,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "otslam_tpu_torch"
 LIB_NAME = "libotslam_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +56,8 @@ SIGNATURES = {
     "otslam_nn": [_P, _P, _I, _I, _P, _P, _P],          # src dst n m bd bi stream
     "otslam_nn_window": [_P, _P, _P, _P, _I, _I,        # src dst c0 c1 n mp
                          _P, _P, _P],                   # bd bi stream
+    "otslam_raycast": [_P, _I, _I, _P, _P, _P, _I, _I,  # grid H W cos sin xy B KB
+                       _I, _F, _F, _F, _P, _P, _P],     # S res ox oy fs fo stream
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -105,18 +108,26 @@ def load() -> ctypes.CDLL:
                 "toolkit; CPU tensors take the plain PyTorch path instead")
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so",
-                                         delete=False) as tmp:
-            tmp_path = tmp.name
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp_path,
-                               *map(str, srcs)],
-                              capture_output=True, text=True)
-        BUILD_LOG["output"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp_path)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{BUILD_LOG['output']}")
-        os.replace(tmp_path, lib_path)     # atomic: no half-written library
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            objs = [str(Path(tmp) / f"{s.stem}.o") for s in srcs]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s),
+                                       "-o", o], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for s, o in zip(srcs, objs)]
+            outs = [p.communicate()[0] for p in procs]
+            BUILD_LOG["output"] = "".join(outs)
+            failed = [s.name for s, p in zip(srcs, procs) if p.returncode]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n"
+                                   f"{BUILD_LOG['output']}")
+            tmp_lib = str(Path(tmp) / LIB_NAME)
+            proc = subprocess.run([nvcc, "-shared", "-o", tmp_lib, *objs],
+                                  capture_output=True, text=True)
+            BUILD_LOG["output"] += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{BUILD_LOG['output']}")
+            os.replace(tmp_lib, lib_path)  # atomic: no half-written library
         BUILD_LOG["seconds"] = time.perf_counter() - t0
     BUILD_LOG["path"] = str(lib_path)
     lib = ctypes.CDLL(str(lib_path))

@@ -39,7 +39,7 @@ class TSDFVolume:
 
     @classmethod
     def from_numpy(cls, tsdf, weight, color, origin, voxel_size, sdf_trunc,
-                   device="cpu") -> "TSDFVolume":
+                   device="cuda") -> "TSDFVolume":
         """Volume from numpy fields (e.g. np.asarray of a JAX volume's)."""
         dev = resolve_device(device)
         def t(a):
@@ -56,7 +56,7 @@ class TSDFVolume:
                 "sdf_trunc": self.sdf_trunc}
 
 
-def make_volume(cfg: TSDFConfig, device="cpu",
+def make_volume(cfg: TSDFConfig, device="cuda",
                 dtype: torch.dtype = torch.float32) -> TSDFVolume:
     X, Y, Z = cfg.dims
     dev = resolve_device(device)

@@ -74,7 +74,7 @@ class BlockTSDFVolume:
 
     @classmethod
     def from_numpy(cls, tsdf, weight, color, created, origin, voxel_size,
-                   sdf_trunc, grid_blocks, device="cpu") -> "BlockTSDFVolume":
+                   sdf_trunc, grid_blocks, device="cuda") -> "BlockTSDFVolume":
         """Volume from numpy fields (e.g. np.asarray of a JAX volume's)."""
         dev = resolve_device(device)
 
@@ -94,7 +94,7 @@ class BlockTSDFVolume:
                 "sdf_trunc": self.sdf_trunc, "grid_blocks": self.grid_blocks}
 
 
-def make_block_volume(cfg: TSDFConfig, device="cpu") -> BlockTSDFVolume:
+def make_block_volume(cfg: TSDFConfig, device="cuda") -> BlockTSDFVolume:
     X, Y, Z = cfg.dims
     if any(d % BLOCK for d in cfg.dims):
         raise ValueError(f"dims {cfg.dims} must be multiples of {BLOCK}")

@@ -40,7 +40,7 @@ def _host(x) -> np.ndarray:
 class ScanLocalizer:
     def __init__(self, grid: OccupancyGrid2D, max_map_points: int = 20000,
                  threshold: float = 0.3, max_correction: float = 1.0,
-                 max_yaw_correction: float = 0.5, device="cpu"):
+                 max_yaw_correction: float = 0.5, device="cuda"):
         self.device = resolve_device(device)
         # occupied_world_points returns cell origins; registration wants
         # cell centers

@@ -170,7 +170,7 @@ class ReconstructionResult:
 
 def fuse_frames(depths, colors, extrinsics, intr: PinholeIntrinsics,
                 cfg: ReconstructionConfig, backend: str = "pallas",
-                densify: bool = True, device="cpu"):
+                densify: bool = True, device="cuda"):
     """Fuse a stacked frame batch into a TSDF volume on `device`.
 
     depths (N,H,W) meters, colors (N,H,W,3) [0,255], extrinsics (N,4,4)
@@ -241,7 +241,7 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
                        backend: str = "pallas", z_filter: bool = True,
                        seed: int = 0, output: str = "cloud",
                        auto_origin: bool = False, refine: str = "none",
-                       auto_dims: bool | None = None, device="cpu",
+                       auto_dims: bool | None = None, device="cuda",
                        draws: torch.Tensor | None = None,
                        timings: dict | None = None) -> ReconstructionResult:
     """The per-object pipeline after dataset loading: (auto-sized volume)
@@ -298,7 +298,7 @@ def reconstruct_object(ds: CaptureDataset, obj_name: str,
                        output: str = "cloud",
                        auto_origin: bool = False,
                        refine: str = "none",
-                       auto_dims: bool | None = None, device="cpu",
+                       auto_dims: bool | None = None, device="cuda",
                        draws: torch.Tensor | None = None
                        ) -> ReconstructionResult:
     """Full per-object pipeline; writes <save_dir>/<obj_name>.ply if asked.

@@ -143,7 +143,7 @@ def refine_trajectory(depths, colors, extrinsics, intr: PinholeIntrinsics,
                       cfg: ReconstructionConfig, max_active: int = 2048,
                       thresholds=(0.1, 0.05, 0.02), stride: int = 4,
                       trust_translation: float = 0.15, trust_rot: float = 0.15,
-                      device="cpu") -> RefineResult:
+                      device="cuda") -> RefineResult:
     """Frame-to-frame point-to-plane tracking, then fusion with the
     corrected poses.
 
@@ -197,7 +197,7 @@ def refine_trajectory_f2m(depths, colors, extrinsics, intr: PinholeIntrinsics,
                           stride: int = 4, max_iterations: int = 15,
                           trust_translation: float = 0.2,
                           trust_rot: float = 0.2,
-                          device="cpu") -> RefineResult:
+                          device="cuda") -> RefineResult:
     """Frame-to-model tracking: each frame's pose is solved by Gauss-Newton
     on the signed distance field fused so far (kernels/track.py), then the
     frame fuses at the corrected pose, so per-frame errors do not compound
@@ -258,7 +258,7 @@ def _register_pair(pts_i, nrm_i, valid_i, pts_j, valid_j, prior_rel,
 def detect_loop_closures(depths, extrinsics, intr: PinholeIntrinsics,
                          stride: int = 4, min_gap: int = 8,
                          radius: float = 0.8, max_pairs: int = 6,
-                         min_fitness: float = 0.5, device="cpu"):
+                         min_fitness: float = 0.5, device="cuda"):
     """Propose + verify loop-closure edges over a trajectory.
 
     Candidates: frame pairs (i, j) with |i - j| >= min_gap whose estimated
@@ -309,7 +309,7 @@ def refine_trajectory_pgo(depths, colors, extrinsics, intr: PinholeIntrinsics,
                           stride: int = 4, min_gap: int = 8,
                           loop_radius: float = 0.8, max_loop_pairs: int = 6,
                           num_iters: int = 12, front_end: str = "f2m",
-                          device="cpu") -> RefineResult:
+                          device="cuda") -> RefineResult:
     """Pose-graph refinement: a tracked odometry chain plus loop-closure
     edges, jointly optimized with Gauss-Newton, then fused.
 

@@ -1,6 +1,5 @@
 """Analytic RGB-D camera and planar LiDAR (counterpart of
-otslam_tpu/sim/sensors.py; render_lidar_path comes with the perception
-slice).
+otslam_tpu/sim/sensors.py).
 
 Exact ray-primitive intersections, vectorized over pixels x primitives in
 torch on a given device. Depth is the z coordinate in the optical frame
@@ -47,12 +46,20 @@ def _safe(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) > 1e-12, x, 1e-12)
 
 
+def _to_box(v, c: float, s: float):
+    """(..., 3) world vectors into a box's frame, R = [[c, s, 0], [-s, c, 0],
+    [0, 0, 1]] written out elementwise: each row's arithmetic is then the
+    same whatever the batch shape (a matmul may pick another summation
+    order for another row count)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack([x * c + y * s, x * (-s) + y * c, z], dim=-1)
+
+
 def _ray_box(o, d, box: Box):
-    c, s = np.cos(box.yaw), np.sin(box.yaw)
-    R = torch.tensor([[c, s, 0.0], [-s, c, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=o.dtype, device=o.device)  # world -> box local
-    ol = (o - torch.tensor(box.center, dtype=o.dtype, device=o.device)) @ R.T
-    dl = d @ R.T
+    c, s = float(np.cos(box.yaw)), float(np.sin(box.yaw))
+    ol = _to_box(o - torch.tensor(box.center, dtype=o.dtype,
+                                  device=o.device), c, s)
+    dl = _to_box(d, c, s)
     half = torch.tensor(box.size, dtype=o.dtype, device=o.device) / 2.0
     dsafe = _safe(dl)
     t1 = (-half - ol) / dsafe
@@ -145,7 +152,7 @@ def _ray_solid(o, d, solid):
 def render_rgbd(scene: Scene, cam_pose_world: np.ndarray,
                 intr: PinholeIntrinsics, near: float = 0.05,
                 far: float = 10.0, include_floor: bool | None = None,
-                device="cpu"):
+                device="cuda"):
     """Render depth (H, W) f32 meters (0 = no return) and color (H, W, 3)
     f32 in [0, 255] on `device` from an optical-frame camera->world pose."""
     dev = resolve_device(device)
@@ -179,17 +186,41 @@ def render_rgbd(scene: Scene, cam_pose_world: np.ndarray,
 def render_lidar(scene: Scene, robot_x: float, robot_y: float,
                  robot_yaw: float, angles, range_min: float = 0.12,
                  range_max: float = 10.0, sensor_z: float = 0.17,
-                 device="cpu") -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
     """Planar scan at height sensor_z from the robot pose (x, y, yaw);
     angles (B,) in the robot frame. Returns ranges (B,) f32 on `device`,
     +inf = no return."""
     dev = resolve_device(device)
-    ga = torch.as_tensor(angles, dtype=torch.float32, device=dev) \
-        + torch.tensor(robot_yaw, dtype=torch.float32, device=dev)
+    return _lidar(scene, torch.tensor(robot_x, dtype=torch.float32,
+                                      device=dev),
+                  torch.tensor(robot_y, dtype=torch.float32, device=dev),
+                  torch.tensor(robot_yaw, dtype=torch.float32, device=dev),
+                  torch.as_tensor(angles, dtype=torch.float32, device=dev),
+                  range_min, range_max, sensor_z)
+
+
+def render_lidar_path(scene: Scene, xs, ys, yaws, angles,
+                      range_min: float = 0.12, range_max: float = 10.0,
+                      sensor_z: float = 0.17, device="cuda") -> torch.Tensor:
+    """Scans along a path: (K,) pose arrays -> (K, B) ranges on `device`,
+    one batched render. Each row is bit-identical to render_lidar at the
+    same pose (the same elementwise arithmetic with a leading pose axis)."""
+    dev = resolve_device(device)
+
+    def col(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)[:, None]
+    return _lidar(scene, col(xs), col(ys), col(yaws),
+                  torch.as_tensor(angles, dtype=torch.float32, device=dev),
+                  range_min, range_max, sensor_z)
+
+
+def _lidar(scene: Scene, x, y, yaw, angles, range_min, range_max, sensor_z):
+    """Planar scans for f32 pose tensors x, y, yaw (0-d, or (K, 1) for a
+    path) and angles (B,): ranges (B,) or (K, B)."""
+    ga = angles + yaw
     dirs = torch.stack([torch.cos(ga), torch.sin(ga), torch.zeros_like(ga)],
                        dim=-1)
-    o = torch.stack([torch.full_like(ga, robot_x),
-                     torch.full_like(ga, robot_y),
+    o = torch.stack([x.expand_as(ga), y.expand_as(ga),
                      torch.full_like(ga, sensor_z)], dim=-1)
     ts = torch.stack([_ray_solid(o, dirs, s) for s in scene.all_solids()])
     tmin = ts.amin(dim=0)

@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3, K4 of otslam_tpu_torch against their plain PyTorch
-versions, on a CUDA GPU. Every test here is marked `cuda` and skips on a
+"""Kernels K1, K2, K3, K4, K5 of otslam_tpu_torch against their plain
+PyTorch versions, on a CUDA GPU. Every test here is marked `cuda` and skips on a
 machine without one; the same comparisons at the main path's full size are
 phases of chip_smoke.py.
 
@@ -16,7 +16,7 @@ import torch
 
 from otslam_tpu_torch.config import TSDFConfig
 from otslam_tpu_torch.core.camera import PinholeIntrinsics
-from otslam_tpu_torch.kernels import nn, tsdf_cuda as tc
+from otslam_tpu_torch.kernels import nn, raycast, tsdf_cuda as tc
 from otslam_tpu_torch.kernels import tsdf_block as ttb
 from otslam_tpu_torch.sim.sensors import look_at_pose, render_rgbd
 from otslam_tpu_torch.sim.world import cardboard_room
@@ -43,7 +43,8 @@ def frames():
     for i in range(8):
         a = 2 * np.pi * i / 8
         pose = look_at_pose([c[0] + np.cos(a), c[1] + np.sin(a), 0.5], c)
-        d, col = render_rgbd(cardboard_room(), pose, INTR, far=5.0)
+        d, col = render_rgbd(cardboard_room(), pose, INTR, far=5.0,
+                             device="cpu")
         ds.append(torch.where(d <= 3.0, d, 0.0))
         cs.append(col)
         es.append(torch.as_tensor(np.linalg.inv(pose), dtype=torch.float32))
@@ -83,8 +84,8 @@ def test_fusion_on_the_card_matches_the_cpu_path(dev, frames):
     """The whole schedule with both kernels equals the plain CPU path."""
     gpu = ttb.integrate_frames_sparse(ttb.make_block_volume(VOL, dev),
                                       *(x.to(dev) for x in frames), INTR)
-    cpu = ttb.integrate_frames_sparse(ttb.make_block_volume(VOL), *frames,
-                                      INTR)
+    cpu = ttb.integrate_frames_sparse(
+        ttb.make_block_volume(VOL, device="cpu"), *frames, INTR)
     assert torch.equal(gpu.created.cpu(), cpu.created)
     assert torch.equal(gpu.weight.cpu(), cpu.weight)
     assert float((gpu.tsdf.cpu() - cpu.tsdf).abs().max()) <= 1e-5
@@ -172,3 +173,61 @@ def test_wrappers_refuse_mixed_devices(dev, frames):
     meta = ttb.make_block_volume(VOL, dev).meta
     with pytest.raises(ValueError, match="one CUDA device"):
         tc.classify_blocks(meta, depths.to(dev), exts, INTR)
+
+
+@pytest.mark.parametrize("beams, poses", [(360, 1), (1440, 8), (1000, 5)])
+def test_raycast_kernel_matches_plain(dev, beams, poses):
+    """K5 against its plain version on random grids and poses (some off
+    the map), at a beam count that is no multiple of 32: bit-identical
+    step keys."""
+    rng = np.random.default_rng(beams)
+    grid = ((rng.random((150, 190)) < 0.02) * 100).astype(np.int8)
+    angles = torch.as_tensor(np.sort(rng.uniform(0, 2 * np.pi, beams))
+                             .astype(np.float32), device=dev)
+    pose = rng.uniform([-2.0, -2.0, -np.pi], [11.0, 9.0, np.pi],
+                       (poses, 3)).astype(np.float32)
+    grid_t = torch.as_tensor(grid, device=dev)
+    cos_a, sin_a = raycast.beam_trig(torch.as_tensor(pose[:, 2],
+                                                     device=dev), angles)
+    xy = torch.as_tensor(pose[:, :2], device=dev).contiguous()
+    args = (0.05, -0.7, -0.4, 160)
+    before = raycast.ray_keys.launches
+    fs, fo = raycast.ray_keys(grid_t, cos_a, sin_a, xy, *args)
+    ps, po = raycast.ray_keys_torch(grid_t, cos_a, sin_a, xy, *args)
+    assert raycast.ray_keys.launches == before + 1
+    assert torch.equal(fs, ps) and torch.equal(fo, po)
+    assert bool((fs < 160).any()) and bool((fo < 160).any())
+    ranges = raycast.raycast_grid_fast(grid_t, 0.05, -0.7, -0.4,
+                                       *torch.as_tensor(pose.T, device=dev),
+                                       angles, 8.0)
+    plain = raycast.raycast_grid(grid_t, 0.05, -0.7, -0.4,
+                                 *torch.as_tensor(pose.T, device=dev),
+                                 angles, 8.0)
+    assert ranges.shape == (poses, beams) and torch.equal(ranges, plain)
+
+
+def test_raycast_refuses_bad_operands(dev):
+    grid = torch.zeros((10, 10), dtype=torch.int8, device=dev)
+    cos_a = torch.ones((1, 8), device=dev)
+    xy = torch.zeros((1, 2), device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        raycast.ray_keys(grid.float(), cos_a, cos_a, xy, 0.1, 0, 0, 5)
+    with pytest.raises(ValueError, match="float32"):
+        raycast.ray_keys(grid, cos_a.double(), cos_a.double(), xy, 0.1, 0,
+                         0, 5)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        raycast.ray_keys(grid, cos_a, cos_a, xy.cpu(), 0.1, 0, 0, 5)
+
+
+def test_render_lidar_path_rows_equal_render_lidar_on_the_card(dev):
+    from otslam_tpu_torch.sim.sensors import render_lidar, render_lidar_path
+    rng = np.random.default_rng(3)
+    angles = np.linspace(0, 2 * np.pi, 1440, endpoint=False).astype(
+        np.float32)
+    poses = rng.uniform([-4, -4, -np.pi], [4, 4, np.pi], (8, 3)).astype(
+        np.float32)
+    path = render_lidar_path(cardboard_room(), *poses.T, angles, device=dev)
+    for k in range(8):
+        one = render_lidar(cardboard_room(), *map(float, poses[k]), angles,
+                           device=dev)
+        assert torch.equal(path[k], one)

@@ -85,12 +85,12 @@ def test_chamfer_and_evaluate_map_match_jax(clouds):
     np.testing.assert_allclose(float(ta), float(ja), rtol=1e-5)
     np.testing.assert_allclose(float(tcm), float(jc), rtol=1e-5)
     jm = j_evaluate_map(src, dst)
-    tm = evaluate_map(src, dst)
+    tm = evaluate_map(src, dst, device="cpu")
     assert abs(tm.accuracy_cm - jm.accuracy_cm) <= 1e-3
     assert abs(tm.completeness_cm - jm.completeness_cm) <= 1e-3
     # the ICP-aligned protocol runs too (held against JAX in
     # test_torch_refine.py)
-    tm_icp = evaluate_map(src, dst, use_icp=True)
+    tm_icp = evaluate_map(src, dst, use_icp=True, device="cpu")
     assert 0.0 < tm_icp.icp_fitness <= 1.0
     assert np.isfinite([tm_icp.accuracy_cm, tm_icp.completeness_cm]).all()
 

@@ -1,6 +1,7 @@
 """Package hygiene of otslam_tpu_torch: no jax, explicit devices, kernels
 built from source or an error, and CPU runs that never touch a kernel."""
 
+import ast
 import json
 import os
 import re
@@ -41,13 +42,14 @@ sys.argv = ["otslam_tpu_torch.cli"] + sys.argv[1:]
 try:
     runpy.run_module("otslam_tpu_torch.cli", run_name="__main__")
 finally:
-    from otslam_tpu_torch.kernels import nn, tsdf_cuda
+    from otslam_tpu_torch.kernels import nn, raycast, tsdf_cuda
     print("REPORT " + json.dumps({
         "jax": "jax" in sys.modules,
         "otslam_tpu": "otslam_tpu" in sys.modules,
         "launches": [tsdf_cuda.classify_blocks.launches,
                      tsdf_cuda.fuse_blocks.launches, nn.nn_min.launches,
-                     nn.nn_min_windowed.launches]}))
+                     nn.nn_min_windowed.launches,
+                     raycast.ray_keys.launches]}))
 """
 
 
@@ -64,14 +66,20 @@ def test_sources_never_import_jax_or_the_jax_package():
 
 
 def test_import_and_cli_help_stay_off_jax():
-    proc = run_py("import sys, otslam_tpu_torch\n"
-                  "import otslam_tpu_torch.pipeline.reconstruct, "
-                  "otslam_tpu_torch.eval.metrics, otslam_tpu_torch.cli\n"
+    mods = sorted("otslam_tpu_torch." + ".".join(p.relative_to(PKG)
+                                                 .with_suffix("").parts)
+                  for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    assert {"otslam_tpu_torch.sim.runner",
+            "otslam_tpu_torch.mapping.perception",
+            "otslam_tpu_torch.kernels.raycast",
+            "otslam_tpu_torch.mission.tracker"} <= set(mods)
+    proc = run_py("import importlib, sys\n"
+                  f"for m in {mods!r}: importlib.import_module(m)\n"
                   "print(sorted(m for m in sys.modules if m.split('.')[0] "
                   "in ('jax', 'otslam_tpu')))")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
-    for sub in ([], ["reconstruct"], ["eval"]):
+    for sub in ([], ["reconstruct"], ["eval"], ["mission"]):
         proc = run_py(CLI, *sub, "--help")
         assert "usage:" in proc.stdout
         assert not report(proc)["jax"]
@@ -105,7 +113,7 @@ for i in range(8):
     a = 2 * np.pi * i / 8
     pose = look_at_pose([1.5 + np.cos(a), 0.5 + np.sin(a), 0.5],
                         [1.5, 0.5, 0.15])
-    d, c = render_rgbd(cardboard_room(), pose, intr, far=5.0)
+    d, c = render_rgbd(cardboard_room(), pose, intr, far=5.0, device="cpu")
     ds.save_frame("Object_0", c.numpy().astype(np.uint8), d.numpy(),
                   pose @ T_FIX_OPTICAL.T)
 """)
@@ -115,7 +123,7 @@ for i in range(8):
     assert rec.returncode == 0, rec.stderr
     assert "Object_0: " in rec.stdout and "from 8 frames" in rec.stdout
     r = report(rec)
-    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0, 0, 0, 0]
+    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0] * 5
     ply = root / "3d_reconst" / "Object_0.ply"
     ev = run_py(CLI, "eval", "--map", str(ply), "--gt-samples", "5000",
                 "--device", "cpu")
@@ -123,7 +131,7 @@ for i in range(8):
     metrics = json.loads(ev.stdout.splitlines()[0])
     assert 0 < metrics["accuracy_cm"] < 2.0
     r = report(ev)
-    assert not r["jax"] and r["launches"] == [0, 0, 0, 0]
+    assert not r["jax"] and r["launches"] == [0] * 5
 
 
 def test_unported_options_raise():
@@ -131,7 +139,8 @@ def test_unported_options_raise():
     from otslam_tpu_torch.pipeline.reconstruct import (fuse_frames,
                                                        reconstruct_frames)
     with pytest.raises(ValueError, match="backend"):
-        fuse_frames([], [], [], None, ReconstructionConfig(), backend="xla")
+        fuse_frames([], [], [], None, ReconstructionConfig(), backend="xla",
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP M4"):
         reconstruct_frames(None, None, output="mesh", device="cpu")
     with pytest.raises(ValueError, match="refine"):
@@ -164,3 +173,78 @@ def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load()
     assert not list(tmp_path.iterdir())
+
+
+# Every public entry point of the port that takes a device, by module.
+ENTRY_POINTS = {
+    "otslam_tpu_torch.pipeline.reconstruct": [
+        "fuse_frames", "reconstruct_frames", "reconstruct_object"],
+    "otslam_tpu_torch.eval.metrics": ["evaluate_map"],
+    "otslam_tpu_torch.pipeline.refine": [
+        "refine_trajectory", "refine_trajectory_f2m", "detect_loop_closures",
+        "refine_trajectory_pgo"],
+    "otslam_tpu_torch.mapping.localize": ["ScanLocalizer"],
+    "otslam_tpu_torch.sim.sensors": ["render_rgbd", "render_lidar",
+                                     "render_lidar_path"],
+    "otslam_tpu_torch.kernels.tsdf": ["make_volume"],
+    "otslam_tpu_torch.kernels.tsdf_block": ["make_block_volume"],
+    "otslam_tpu_torch.core.volume_io": ["load_volume"],
+    "otslam_tpu_torch.mapping.virtual_scan": ["VirtualScanner"],
+    "otslam_tpu_torch.mapping.change_detect": ["ChangeDetector"],
+    "otslam_tpu_torch.mapping.object_filter": ["WallProximityFilter"],
+    "otslam_tpu_torch.sim.runner": ["MissionRunner"],
+}
+
+
+def test_entry_points_default_to_the_card():
+    import importlib
+    import inspect
+
+    from otslam_tpu_torch.device import resolve_device
+    from otslam_tpu_torch.kernels.tsdf import TSDFVolume
+    from otslam_tpu_torch.kernels.tsdf_block import BlockTSDFVolume
+    fns = [getattr(importlib.import_module(mod), name)
+           for mod, names in ENTRY_POINTS.items() for name in names]
+    fns += [TSDFVolume.from_numpy, BlockTSDFVolume.from_numpy]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == \
+            "cuda", fn.__qualname__
+    # every device parameter in the package defaults to the card
+    defaults = set()
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.FunctionDef):
+                a = node.args
+                pos = a.posonlyargs + a.args
+                pairs = list(zip(pos[len(pos) - len(a.defaults):],
+                                 a.defaults))
+                pairs += [(k, d) for k, d in zip(a.kwonlyargs, a.kw_defaults)
+                          if d is not None]
+                defaults |= {(path.name, node.name, ast.literal_eval(d))
+                             for k, d in pairs if k.arg == "device"}
+    assert len(defaults) >= len(fns)
+    assert {d for *_, d in defaults} == {"cuda"}, defaults
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_without_cuda_the_defaults_raise():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    import numpy as np
+
+    from otslam_tpu_torch.device import resolve_device
+    from otslam_tpu_torch.mapping.virtual_scan import VirtualScanner
+    from otslam_tpu_torch.sim.runner import MissionRunner
+    from otslam_tpu_torch.sim.sensors import render_lidar
+    from otslam_tpu_torch.sim.world import cardboard_room
+    with pytest.raises(RuntimeError, match="'cuda:0' requested but CUDA"):
+        resolve_device(None)
+    for call in (lambda: render_lidar(cardboard_room(), 0.0, 0.0, 0.0,
+                                      np.zeros(4, np.float32)),
+                 lambda: VirtualScanner(),
+                 lambda: MissionRunner(cardboard_room(), cardboard_room(),
+                                       "unused")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

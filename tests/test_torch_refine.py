@@ -107,7 +107,7 @@ def refine_both(which, depths, colors, noisy):
     jres = getattr(jr, REFINERS[which])(depths, colors, noisy, J_INTR, CFG,
                                         max_active=1024)
     tres = getattr(tr, REFINERS[which])(depths, colors, noisy, T_INTR, TCFG,
-                                        max_active=1024)
+                                        max_active=1024, device="cpu")
     return jres, tres
 
 
@@ -158,7 +158,7 @@ def test_refine_trajectory_pgo_matches_jax(looped):
     kw = dict(max_active=1024, front_end="icp")
     jres = jr.refine_trajectory_pgo(depths, colors, noisy, J_INTR, CFG, **kw)
     tres = tr.refine_trajectory_pgo(depths, colors, noisy, T_INTR, TCFG,
-                                    **kw)
+                                    device="cpu", **kw)
     np.testing.assert_allclose(tres.extrinsics, jres.extrinsics, rtol=0,
                                atol=1e-4)
     assert_trajectory_error_close(tres.extrinsics, jres.extrinsics, gt)
@@ -181,7 +181,7 @@ def test_refine_trajectory_pgo_f2m_front_end_matches_jax(looped):
 def test_loop_closures_match_jax(looped):
     depths, _, _, gt = looped
     jl = jr.detect_loop_closures(depths, gt, J_INTR)
-    tl = tr.detect_loop_closures(depths, gt, T_INTR)
+    tl = tr.detect_loop_closures(depths, gt, T_INTR, device="cpu")
     assert len(tl) == len(jl) >= 1
     for (ti, tj, tM, tf), (ji, jj, jM, jf) in zip(tl, jl):
         assert (ti, tj) == (ji, jj)

@@ -49,12 +49,12 @@ def test_evaluate_map_with_icp_matches_jax():
     mp = np.concatenate([moved, gt[:400] + 0.15 * nrm[:400]]).astype(
         np.float32)
     jm = j_evaluate_map(mp, gt, use_icp=True)
-    tm = evaluate_map(mp, gt, use_icp=True)
+    tm = evaluate_map(mp, gt, use_icp=True, device="cpu")
     assert abs(tm.accuracy_cm - jm.accuracy_cm) <= 1e-3
     assert abs(tm.completeness_cm - jm.completeness_cm) <= 1e-3
     assert tm.icp_fitness == jm.icp_fitness == 1.0
     np.testing.assert_allclose(tm.icp_rmse, jm.icp_rmse, rtol=1e-5)
-    plain = evaluate_map(mp, gt)
+    plain = evaluate_map(mp, gt, device="cpu")
     assert tm.completeness_cm < 0.5 * plain.completeness_cm
     # the window routes the GT->map search through the windowed scan
     W, _ = tnn.auto_nn_window(gt, mp, 0.05)
@@ -93,7 +93,7 @@ def test_reconstruct_object_with_refine_matches_jax(dataset, drifted,
                          backend="sparse", auto_origin=True, refine="icp")
     tres = reconstruct_object(CaptureDataset(dataset, TCFG.camera),
                               "Object_0", TCFG, auto_origin=True,
-                              refine="icp")
+                              refine="icp", device="cpu")
     assert len(seen) == 1
     np.testing.assert_allclose(tres.extrinsics, seen[0].extrinsics, rtol=0,
                                atol=1e-4)
@@ -105,7 +105,8 @@ def test_reconstruct_object_with_refine_matches_jax(dataset, drifted,
         1e-3 * jres.raw_surface_count
     box = sample_object_surfaces([make_captures(1)[3]], 20000, seed=0)
     box = box[box[:, 2] >= 0.03]
-    jm, tm = j_evaluate_map(jres.points, box), evaluate_map(tres.points, box)
+    jm, tm = j_evaluate_map(jres.points, box), evaluate_map(tres.points, box,
+                                                          device="cpu")
     assert abs(tm.accuracy_cm - jm.accuracy_cm) <= 0.02
     assert abs(tm.completeness_cm - jm.completeness_cm) <= 0.02
 
@@ -117,15 +118,15 @@ def test_reconstruct_frames_refine_options(drifted):
                        [f"Object_0_{i + 1}.jpg" for i in range(8)])
     timings = {}
     res = reconstruct_frames(batch, T_INTR, TCFG, refine="icp",
-                             timings=timings)
+                             timings=timings, device="cpu")
     assert list(timings) == ["auto_volume", "refine", "fuse", "extract"]
     assert len(res.points) > 1000 and res.extrinsics.shape == (8, 4, 4)
     assert (tr.trajectory_error(res.extrinsics, gt)[0]
             < tr.trajectory_error(noisy, gt)[0])
-    none = reconstruct_frames(batch, T_INTR, TCFG)
+    none = reconstruct_frames(batch, T_INTR, TCFG, device="cpu")
     np.testing.assert_array_equal(none.extrinsics, noisy)
     with pytest.raises(ValueError, match="refine"):
-        reconstruct_frames(batch, T_INTR, TCFG, refine="slam")
+        reconstruct_frames(batch, T_INTR, TCFG, refine="slam", device="cpu")
 
 
 def test_cli_refine_pgo_and_eval_icp_on_the_cpu(dataset, tmp_path):
@@ -145,7 +146,7 @@ def test_cli_refine_pgo_and_eval_icp_on_the_cpu(dataset, tmp_path):
     assert rec.returncode == 0, rec.stderr
     assert "Object_0: " in rec.stdout and "from 8 frames" in rec.stdout
     r = report(rec)
-    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0] * 4
+    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0] * 5
     ev = run_py(CLI, "eval", "--map", str(out / "Object_0.ply"),
                 "--gt-samples", "5000", "--icp", "--device", "cpu")
     assert ev.returncode == 0, ev.stderr
@@ -153,4 +154,4 @@ def test_cli_refine_pgo_and_eval_icp_on_the_cpu(dataset, tmp_path):
     assert 0 < metrics["accuracy_cm"] < 2.0
     assert 0 < metrics["icp_fitness"] <= 1.0
     r = report(ev)
-    assert not r["jax"] and r["launches"] == [0] * 4
+    assert not r["jax"] and r["launches"] == [0] * 5

@@ -326,7 +326,7 @@ def fused():
         j(exts[:8]), J_SMALL, max_active=256)
     tvol = ttb.BlockTSDFVolume.from_numpy(
         jvol.tsdf, jvol.weight, jvol.color, jvol.created, jvol.origin,
-        jvol.voxel_size, jvol.sdf_trunc, jvol.grid_blocks)
+        jvol.voxel_size, jvol.sdf_trunc, jvol.grid_blocks, device="cpu")
     from otslam_tpu.pipeline.refine import _frame_points
     pts, mask = _frame_points(j(depths[8]), J_SMALL, stride=4)
     return jvol, tvol, np.asarray(pts), np.asarray(mask), exts[8]
@@ -387,7 +387,7 @@ def test_track_on_a_jax_volume_file(fused, tmp_path):
     jvol, _, pts, mask, ext = fused
     path = str(tmp_path / "vol.npz")
     jvio.save_volume(path, jvol)
-    tvol = tvio.load_volume(path)
+    tvol = tvio.load_volume(path, device="cpu")
     jres, tres, _ = track_both(jvio.load_volume(path), tvol, pts, mask, ext)
     np.testing.assert_allclose(tres.transformation.numpy(),
                                np.asarray(jres.transformation), rtol=0,
@@ -425,7 +425,7 @@ def test_grid_and_lidar_match_jax(grids):
         js = np.asarray(j_render_lidar(j_room(), *pose, j(ANGLES),
                                        LIDAR.range_min, LIDAR.range_max))
         ts = render_lidar(cardboard_room(), *pose, ANGLES, LIDAR.range_min,
-                          LIDAR.range_max).numpy()
+                          LIDAR.range_max, device="cpu").numpy()
         np.testing.assert_array_equal(np.isfinite(ts), np.isfinite(js))
         fin = np.isfinite(js)
         np.testing.assert_allclose(ts[fin], js[fin], rtol=0, atol=1e-5)
@@ -440,7 +440,7 @@ def test_localize_matches_jax(grids):
     jg, tg = grids
     prior = (TRUE[0] + 0.12, TRUE[1] - 0.08, TRUE[2] + 0.07)
     jr = JLocalizer(jg).localize(scan(), ANGLES, prior)
-    tr = ScanLocalizer(tg).localize(scan(), ANGLES, prior)
+    tr = ScanLocalizer(tg, device="cpu").localize(scan(), ANGLES, prior)
     np.testing.assert_allclose([tr.x, tr.y, tr.yaw], [jr.x, jr.y, jr.yaw],
                                rtol=0, atol=1e-4)
     assert tr.fitness == pytest.approx(jr.fitness, abs=1e-6)
@@ -452,15 +452,15 @@ def test_localize_degraded_inputs_return_the_prior(grids):
     _, tg = grids
     blank = OccupancyGrid2D(np.full((64, 64), 205, np.uint8), 0.05,
                             (0.0, 0.0))
-    res = ScanLocalizer(blank).localize(np.full(360, 2.0, np.float32),
+    res = ScanLocalizer(blank, device="cpu").localize(np.full(360, 2.0, np.float32),
                                         ANGLES, (1.0, -2.0, 0.3))
     assert (res.x, res.y, res.yaw, res.fitness) == (1.0, -2.0, 0.3, 0.0)
-    res = ScanLocalizer(tg).localize(np.full(360, np.inf, np.float32),
+    res = ScanLocalizer(tg, device="cpu").localize(np.full(360, np.inf, np.float32),
                                      ANGLES, (0.5, 0.5, 0.0))
     assert (res.x, res.y, res.yaw, res.fitness) == (0.5, 0.5, 0.0, 0.0)
     # a wrong-basin fit never moves the pose beyond max_correction
     prior = (3.5, 3.5, 2.0)
-    res = ScanLocalizer(tg, max_correction=0.5).localize(
+    res = ScanLocalizer(tg, max_correction=0.5, device="cpu").localize(
         scan((0.0, 0.0, 0.0)), ANGLES, prior)
     assert np.hypot(res.x - prior[0], res.y - prior[1]) <= 0.5 + 1e-6
 
@@ -470,6 +470,6 @@ def test_localize_with_dropped_beams(grids):
     ranges = scan().copy()
     ranges[::3] = np.inf                    # a third of the beams drop out
     prior = (TRUE[0] + 0.1, TRUE[1] - 0.06, TRUE[2] + 0.05)
-    res = ScanLocalizer(tg).localize(t(ranges), t(ANGLES), prior)
+    res = ScanLocalizer(tg, device="cpu").localize(t(ranges), t(ANGLES), prior)
     assert np.hypot(res.x - TRUE[0], res.y - TRUE[1]) < 0.05
     assert abs(res.yaw - TRUE[2]) < 0.03

@@ -51,7 +51,8 @@ def poses(n, radius=1.0, height=0.5):
 def test_render_rgbd_matches_jax():
     for pose in poses(6) + [look_at_pose([0.0, 0.0, 1.2], [1.5, 0.5, 0.0])]:
         jd, jc = j_render(j_room(), pose, J_SMALL, far=5.0)
-        td, tc = render_rgbd(cardboard_room(), pose, T_SMALL, far=5.0)
+        td, tc = render_rgbd(cardboard_room(), pose, T_SMALL, far=5.0,
+                             device="cpu")
         assert (td > 0).float().mean() > 0.5
         np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0,
                                    atol=1e-5)
@@ -90,7 +91,7 @@ def run_both(root, tmp_path, backend="sparse", frames=None):
                               tcfg, backend="pallas",
                               save_dir=str(tmp_path / "torch"),
                               auto_origin=True, frame_numbers=frames,
-                              draws=torch.tensor(jax_draws()))
+                              draws=torch.tensor(jax_draws()), device="cpu")
     jp = tio.read_ply(str(tmp_path / "jax" / "Object_0.ply"))["points"]
     tp = tio.read_ply(str(tmp_path / "torch" / "Object_0.ply"))["points"]
     return jres, tres, jp, tp
@@ -109,7 +110,7 @@ def test_reconstruct_and_eval_match_jax_sparse(dataset, tmp_path):
     gt = scenario_gt("cardboard", 5000)
     np.testing.assert_array_equal(gt, j_scenario_gt("cardboard", 5000))
     jm = j_evaluate_map(jp, gt)
-    tm = evaluate_map(tp, gt)
+    tm = evaluate_map(tp, gt, device="cpu")
     assert abs(tm.accuracy_cm - jm.accuracy_cm) <= 1e-3
     assert abs(tm.completeness_cm - jm.completeness_cm) <= 1e-3
     assert tm.accuracy_cm < 2.0                 # 2 cm voxels
@@ -142,7 +143,7 @@ def test_reconstruct_close_to_jax_pallas(dataset, tmp_path):
               tsdf=JTCfg(**VOL)))}).reconstruction
     tres = reconstruct_object(CaptureDataset(dataset, tcfg.camera),
                               "Object_0", tcfg, auto_origin=True,
-                              frame_numbers=frames)
+                              frame_numbers=frames, device="cpu")
     acc, comp = chamfer_metrics(torch.from_numpy(tres.points),
                                 torch.from_numpy(np.asarray(jp)))
     assert float(acc) < 1e-3 and float(comp) < 1e-3

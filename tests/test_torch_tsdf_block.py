@@ -47,7 +47,7 @@ def j(x):
 def port_volume(jvol):
     return ttb.BlockTSDFVolume.from_numpy(
         jvol.tsdf, jvol.weight, jvol.color, jvol.created, jvol.origin,
-        jvol.voxel_size, jvol.sdf_trunc, jvol.grid_blocks)
+        jvol.voxel_size, jvol.sdf_trunc, jvol.grid_blocks, device="cpu")
 
 
 def jax_fuse(depths, colors, exts, vol=None):
@@ -81,7 +81,7 @@ class TestClassify:
     def test_active_blocks_bit_identical(self, frames):
         depths, _, exts = frames
         jvol = jtb.make_block_volume(JCFG)
-        meta = ttb.make_block_volume(TCFG).meta
+        meta = ttb.make_block_volume(TCFG, device="cpu").meta
         band_j, vis_j = jax.vmap(
             lambda d, e: jtb._active_blocks(jvol, d, e, J_SMALL))(
                 j(depths), j(exts))
@@ -105,7 +105,7 @@ class TestClassify:
         created_in[::7] = True           # a partly created volume
         created_j = np.asarray(jtp._cumulative_or(band_p)) | created_in[None]
 
-        meta = ttb.make_block_volume(TCFG).meta
+        meta = ttb.make_block_volume(TCFG, device="cpu").meta
         band_t, vis_t = tc.classify_blocks(meta, t(depths), t(exts), T_SMALL)
         created_t, active_t = tc.created_and_active(band_t, vis_t,
                                                     t(created_in))
@@ -141,7 +141,7 @@ class TestBlockFusion:
     def test_matches_jax_sparse(self, frames):
         depths, colors, exts = frames
         jvol = jax_fuse(depths, colors, exts)
-        tvol = ttb.integrate_frames_sparse(ttb.make_block_volume(TCFG),
+        tvol = ttb.integrate_frames_sparse(ttb.make_block_volume(TCFG, device="cpu"),
                                            t(depths), t(colors), t(exts),
                                            T_SMALL)
         check_block_fusion(jvol, tvol, depths, exts)
@@ -165,7 +165,7 @@ class TestBlockFusion:
         depths, colors, exts = frames
         path = str(tmp_path / "vol.npz")
         jvio.save_volume(path, jax_fuse(depths[:3], colors[:3], exts[:3]))
-        tvol = tvio.load_volume(path)
+        tvol = tvio.load_volume(path, device="cpu")
         ttb.integrate_frames_sparse(tvol, t(depths[3:]), t(colors[3:]),
                                     t(exts[3:]), T_SMALL)
         whole = jax_fuse(depths, colors, exts)
@@ -181,8 +181,8 @@ class TestBlockFusion:
         active block ids, as the JAX package's compact_ids does; the
         uncapped list fuses other blocks and differs from it."""
         depths, colors, exts = frames
-        meta = ttb.make_block_volume(TCFG).meta
-        nb = ttb.make_block_volume(TCFG).num_blocks
+        meta = ttb.make_block_volume(TCFG, device="cpu").meta
+        nb = ttb.make_block_volume(TCFG, device="cpu").num_blocks
         band, vis = tc.classify_blocks(meta, t(depths), t(exts), T_SMALL)
         _, active = tc.created_and_active(band, vis,
                                           torch.zeros(nb, dtype=torch.bool))
@@ -192,11 +192,11 @@ class TestBlockFusion:
         jvol = jtb.integrate_frames_sparse(
             jtb.make_block_volume(JCFG), j(depths), j(colors), j(exts),
             J_SMALL, max_active=k)
-        tvol = ttb.integrate_frames_sparse(ttb.make_block_volume(TCFG),
+        tvol = ttb.integrate_frames_sparse(ttb.make_block_volume(TCFG, device="cpu"),
                                            t(depths), t(colors), t(exts),
                                            T_SMALL, max_active=k)
         check_block_fusion(jvol, tvol, depths, exts)
-        free = ttb.integrate_frames_sparse(ttb.make_block_volume(TCFG),
+        free = ttb.integrate_frames_sparse(ttb.make_block_volume(TCFG, device="cpu"),
                                            t(depths), t(colors), t(exts),
                                            T_SMALL)
         # creation takes the whole band either way; only integration is cut
@@ -218,7 +218,7 @@ class TestBlockFusion:
                           dims=CFG.dims, origin=CFG.origin)
         tintr = PinholeIntrinsics(INTR.width, INTR.height, INTR.fx, INTR.fy,
                                   INTR.cx, INTR.cy)
-        tv = ttb.integrate_frames_sparse(ttb.make_block_volume(tcfg),
+        tv = ttb.integrate_frames_sparse(ttb.make_block_volume(tcfg, device="cpu"),
                                          t(depths), t(colors), t(exts), tintr)
         wp, wt = np.asarray(p.weight), tv.weight.numpy()
         observed = (wp > 0) | (wt > 0)
@@ -277,7 +277,7 @@ class TestDense:
         depths, colors, exts = (a[:4] for a in frames)
         jv = jtsdf.integrate_frames(jtsdf.make_volume(JCFG), j(depths),
                                     j(colors), j(exts), J_SMALL)
-        tv = ttsdf.integrate_frames(ttsdf.make_volume(TCFG), t(depths),
+        tv = ttsdf.integrate_frames(ttsdf.make_volume(TCFG, device="cpu"), t(depths),
                                     t(colors), t(exts), T_SMALL)
         X, Y, Z = TCFG.dims
         axes = [TCFG.origin[k] + (np.arange(n) + 0.5) * TCFG.voxel_size
@@ -294,7 +294,7 @@ class TestDense:
                                     j(colors), j(exts), J_SMALL)
         tv = ttsdf.TSDFVolume.from_numpy(jv.tsdf, jv.weight, jv.color,
                                          jv.origin, jv.voxel_size,
-                                         jv.sdf_trunc)
+                                         jv.sdf_trunc, device="cpu")
         jout = jtsdf.extract_surface_points(jv, capacity=200_000,
                                             with_normals=True)
         tout = ttsdf.extract_surface_points(tv, capacity=200_000,

@@ -53,7 +53,7 @@ def test_worklist_is_the_exact_csr_of_the_mask(density):
 
 
 def test_empty_batch_leaves_the_volume():
-    vol = ttb.make_block_volume(VOL)
+    vol = ttb.make_block_volume(VOL, device="cpu")
     out = tc.integrate_frames_cuda(
         vol, torch.zeros((0, 120, 160)), torch.zeros((0, 120, 160, 3)),
         torch.zeros((0, 4, 4)), T_SMALL)
@@ -62,7 +62,7 @@ def test_empty_batch_leaves_the_volume():
 
 def test_dead_row_restored_and_cpu_never_launches():
     depths, colors, exts = (torch.from_numpy(a) for a in capture(3))
-    vol = ttb.make_block_volume(VOL)
+    vol = ttb.make_block_volume(VOL, device="cpu")
     vol.tsdf[-1] = 5.0                     # a dirtied dead row
     launches = (tc.classify_blocks.launches, tc.fuse_blocks.launches)
     ttb.integrate_frames_sparse(vol, depths, colors, exts, T_SMALL)
