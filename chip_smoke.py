@@ -11,19 +11,23 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    (64 VGA frames, 1 cm voxels, a 256^3 volume = 32768 blocks, and
    100k x 50k points), with CUDA-event times for both:
    K2 block classification (bit-identical), K1 block fusion (weights equal,
-   tsdf <= 1e-5, colour <= 1e-3), K3 nearest neighbour (distances
-   rel <= 1e-6, indices equal off ties);
+   tsdf <= 1e-5, colour <= 1e-3), K3 nearest neighbour (d^2 and index
+   bit-identical) at the eval's 100k x 50k and 50k x 100k and at the
+   localizer's 1440-beam scan against the cardboard room's 0.05 m grid
+   cloud (the operands of the first K3 call of a real
+   ScanLocalizer.localize), each with the split S of its launch;
 4. main path: a 64-frame VGA capture circle of the cardboard room, rendered
    on the card, goes through reconstruct_frames (the body of
    reconstruct_object after dataset loading) with the default
    ReconstructionConfig and auto_volume_config, then write_ply -> read_ply
    -> evaluate_map against the 50k-point scenario GT; every kernel must
    have launched and the accuracy must be < 1 cm;
-5. K4 windowed nearest neighbour against its plain version at 50k x 50k
-   (bit-identical d^2 and index on every row) and against K3 (identical on
-   every row whose nearest neighbour lies within the 0.05 m radius, >= the
-   radius elsewhere), with CUDA-event times for K4, its plain version and
-   K3;
+5. K4 windowed nearest neighbour against its plain version (bit-identical
+   d^2 and index on every row) and against K3 (identical on every row whose
+   nearest neighbour lies within the radius, >= the radius elsewhere) at
+   50k x 50k with a 0.05 m radius and at the pair-ICP shape: two
+   consecutive capture frames through refine._frame_points_normals, the
+   source moved by the prior, the window of _pair_nn_window, radius 0.1 m;
 6. registration path: the phase-4 capture with its poses drifted by
    compounding odometry noise goes through reconstruct_frames with
    refine="icp" and refine="pgo", then write_ply -> read_ply ->
@@ -47,12 +51,16 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 Each path (phases 4, 6 and 8) is driven with the launch counters set to 0
 just before it and read just after. Every kernel's record carries two
 times: `ms`, CUDA events around the wrapper call (its host work included),
-and `kernel_ms`, the kernel alone in a torch.profiler trace. It carries its
-bound too: the larger of the bytes it must move over 3.35 TB/s and its f32
-operations over 67 TFLOP/s (the H100 SXM's published peaks), at this run's
-shapes and data. The line before the last two is the kernels' JSON record,
-then the nvidia-smi name/power line; the last line is
-{"ok": true, "device": {...}}. JAX and otslam_tpu are never imported.
+and `kernel_ms`, the kernel alone in a torch.profiler trace (K3/K4: the
+scan and, for a split launch, the merge). It carries its bound too: the
+larger of the bytes it must move over 3.35 TB/s and its f32 operations
+over 67 TFLOP/s (the H100 SXM's published peaks), at this run's shapes and
+data; K3 and K4 also a `shapes` list with a record per shape (the log
+gives each shape's split S, its pairs and the instruction floor of the
+kernel's unfused arithmetic beside it). The line before the last two is
+the kernels' JSON record, then the nvidia-smi name/power line; the last
+line is {"ok": true, "device": {...}}. JAX and otslam_tpu are never
+imported. profile_paths.py drives phases 4, 6 and 8 under a profiler.
 """
 
 from __future__ import annotations
@@ -77,6 +85,14 @@ RAY_POSES = 64            # one perception batch of K = 64 ticks
 MISSION_TICKS = 300       # the mission CLI's --max-ticks default
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+SM_CLOCK_HZ = 1.98e9          # H100 SXM boost clock
+# lane instructions a pair with -fmad=false, counted from csrc/nn.cu's scan
+# (its shared-memory loads and loop overhead left out): 8 f32 operations,
+# then K4 a compare and two selects a pair, K3 3 fminf, a compare and a
+# branch a group of 4 destinations
+K3_INSTRUCTIONS = 9.3
+K4_INSTRUCTIONS = 11.0
+PAIR_RADIUS = 0.1             # refine_trajectory's widest ICP threshold
 
 
 class SmokeFailure(RuntimeError):
@@ -114,12 +130,12 @@ def cuda_ms(fn, reps: int, setup=None, warmup: int = 1) -> float:
     return total / reps
 
 
-def kernel_ms(fn, reps: int, kernel: str):
-    """Device milliseconds per fn() call of the CUDA kernel named `kernel`,
-    from a torch.profiler trace of `reps` calls after a warm-up: the kernel
-    alone, without the wrapper's host time and the other launches that the
-    event timing of cuda_ms includes. None when the trace holds no such
-    kernel."""
+def kernel_ms(fn, reps: int, kernels):
+    """Device milliseconds per fn() call of the CUDA kernels named in
+    `kernels` (one name or several, summed), from a torch.profiler trace of
+    `reps` calls after a warm-up: the kernels alone, without the wrapper's
+    host time and the other launches that the event timing of cuda_ms
+    includes. None when the trace holds none of them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -130,8 +146,10 @@ def kernel_ms(fn, reps: int, kernel: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (kernels,) if isinstance(kernels, str) else kernels
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and f"{kernel}(" in e.name]
+          if e.device_type == DeviceType.CUDA
+          and any(f"{k}(" in e.name for k in names)]
     return sum(us) * 1e-3 / reps if us else None
 
 
@@ -215,19 +233,25 @@ def phase_k2(meta, depths, exts, intr):
     dev_ms = kernel_ms(lambda: tc.classify_blocks(meta, depths, exts, intr),
                        10, "classify_kernel")
     n, nb = band_k.shape
-    # depths read once, band and visible written once (a byte each); about
+    # the kernel reads the packed (th*tw, 8) f32 mip table and two f32 depth
+    # bounds of each frame and its extrinsic, and writes band and visible
+    # (a byte each); the block coordinates come from the thread index. About
     # 55 f32 operations a (frame, block) pair (block centre, projection,
     # pixel slack, frustum and depth-bound tests)
-    b = bound(depths.numel() * 4 + n * nb * 2 + exts.numel() * 4,
-              55.0 * n * nb)
+    table = _depth_mips(depths)[0]
+    b = bound(table.numel() * 4 + n * 2 * 4 + exts.numel() * 4
+              + n * nb * 2, 55.0 * n * nb)
+    # the torch mips read the frames and write the table
+    mips_bytes = depths.numel() * 4 + table.numel() * 4
     log(f"K2 classify: {tuple(band_k.shape)} pairs, band {int(band_p.sum())}"
         f" visible {int(vis_p.sum())}, mismatches 0, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (both incl. the mips, {mips_ms:.4f} ms), "
-        f"kernel alone {fmt_ms(dev_ms)}, bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']})")
+        f"plain {plain_ms:.4f} ms (both incl. the mips, {mips_ms:.4f} ms "
+        f"for {mips_bytes} bytes, bound "
+        f"{mips_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), kernel alone "
+        f"{fmt_ms(dev_ms)}, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return band_p, vis_p, {"max_abs_err": 0.0, "ms": ms,
                            "kernel_ms": dev_ms, "plain_ms": plain_ms, **b,
-                           "library_ms": None}
+                           "library_ms": None, "mips_ms": mips_ms}
 
 
 def phase_k1(vol_cfg, band, vis, depths, colors, exts, intr):
@@ -282,7 +306,82 @@ def phase_k1(vol_cfg, band, vis, depths, colors, exts, intr):
             "plain_ms": plain_ms, **b, "library_ms": None}
 
 
+def nn_record(label, kernel, plain, names, pairs, nbytes, instructions,
+              splits, dev, cdist=None, reps=10):
+    """Times of one NN kernel call at one shape: events around the wrapper,
+    the kernel alone (its scan and merge launches) from a trace, the plain
+    version, torch.cdist().min() where `cdist` gives its (src, dst), and the
+    bound. The log adds the split S, the pairs and the instruction floor:
+    `instructions` lane instructions a pair over every lane of the card at
+    its boost clock."""
+    import torch
+    ms = cuda_ms(kernel, reps)
+    dev_ms = kernel_ms(kernel, reps, names)
+    plain_ms = cuda_ms(plain, 3)
+    lib_ms = cdist_min_ms(*cdist) if cdist is not None else None
+    # 8 f32 operations a pair (3 differences, 3 squares, 2 sums)
+    b = bound(nbytes, 8.0 * pairs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor_ms = instructions * pairs / (sms * 128 * SM_CLOCK_HZ) * 1e3
+    log(f"  {label}: split S {splits}, pairs {pairs:.0f}, kernel {ms:.4f} "
+        f"ms, kernel alone {fmt_ms(dev_ms)}, plain {plain_ms:.4f} ms, "
+        f"torch.cdist().min() {fmt_ms(lib_ms)}, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}), instruction floor at "
+        f"{instructions} a pair {floor_ms:.4f} ms")
+    return {"shape": label, "max_abs_err": 0.0, "ms": ms,
+            "kernel_ms": dev_ms, "plain_ms": plain_ms, **b,
+            "library_ms": lib_ms}
+
+
+def localizer_case(dev):
+    """Phase 6's scan localization: a ScanLocalizer on the cardboard room's
+    0.05 m grid, the 1440-beam scan from the true pose, and a prior off by
+    (0.08, -0.06) m and 0.07 rad. Returns (loc, scan, angles, prior,
+    true)."""
+    import numpy as np
+
+    from otslam_tpu_torch.config import LidarConfig
+    from otslam_tpu_torch.mapping.localize import ScanLocalizer
+    from otslam_tpu_torch.sim.sensors import render_lidar
+    from otslam_tpu_torch.sim.world import cardboard_room
+    lidar = LidarConfig()
+    scene = cardboard_room()
+    angles = np.linspace(0, 2 * np.pi, lidar.num_beams,
+                         endpoint=False).astype(np.float32)
+    true = (0.6, -1.1, 0.8)
+    scan = render_lidar(scene, *true, angles, lidar.range_min,
+                        lidar.range_max, device=dev)
+    prior = (true[0] + 0.08, true[1] - 0.06, true[2] + 0.07)
+    loc = ScanLocalizer(scene.occupancy_grid(0.05), device=dev)
+    return loc, scan, angles, prior, true
+
+
+def first_k3_operands(run):
+    """(src, dst, dst_mask) of the first nn_min call that run() makes,
+    recorded on its way to the kernel; run's K3 calls all go ahead."""
+    from otslam_tpu_torch.kernels import nn
+    real, seen = nn.nn_min, []
+
+    def record(src, dst, dst_mask):
+        seen.append((src.clone(), dst.clone(), dst_mask.clone()))
+        return real(src, dst, dst_mask)
+
+    # the wrapper counts its launches on the module's nn_min, this one while
+    # it stands in
+    record.launches = 0
+    nn.nn_min = record
+    try:
+        run()
+    finally:
+        nn.nn_min = real
+    check(bool(seen), "the localizer made no K3 call")
+    return seen[0]
+
+
 def phase_k3(dev):
+    """K3 against its plain version (bit-identical d^2 and index) at the
+    paths' shapes: the eval's 100k x 50k and 50k x 100k chamfer directions
+    and the localizer's 1440-beam scan against its grid cloud."""
     import numpy as np
     import torch
 
@@ -292,39 +391,104 @@ def phase_k3(dev):
     rng = np.random.default_rng(1)
     src_np = scenario_gt("cardboard", SRC_POINTS, seed=1) + rng.normal(
         0, 0.004, (SRC_POINTS, 3)).astype(np.float32)
-    src = torch.as_tensor(src_np, device=dev)
-    mask = torch.ones(GT_POINTS, dtype=torch.bool, device=dev)
-    d_k, i_k = nn.nn_min(src, gt, mask)
-    d_p, i_p = nn.nn_min_torch(src, gt, mask)
+    cloud = torch.as_tensor(src_np, device=dev)
+    ones = torch.ones(max(GT_POINTS, SRC_POINTS), dtype=torch.bool,
+                      device=dev)
+    loc, scan, angles, prior, _ = localizer_case(dev)
+    lsrc, ldst, lmask = first_k3_operands(
+        lambda: loc.localize(scan, angles, prior))
+    shapes = []
+    for label, src, dst, mask in (
+            (f"eval {SRC_POINTS} x {GT_POINTS}", cloud, gt, ones[:GT_POINTS]),
+            (f"eval {GT_POINTS} x {SRC_POINTS}", gt, cloud,
+             ones[:SRC_POINTS]),
+            (f"localizer {lsrc.shape[0]} x {ldst.shape[0]}", lsrc, ldst,
+             lmask)):
+        d_k, i_k = nn.nn_min(src, dst, mask)
+        d_p, i_p = nn.nn_min_torch(src, dst, mask)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(d_k, d_p)) and bool(torch.equal(i_k, i_p)),
+              f"K3 differs from its plain version at {label} on "
+              f"{int(((d_k != d_p) | (i_k != i_p)).sum())} rows")
+        n, m = src.shape[0], dst.shape[0]
+        shapes.append(nn_record(
+            label, lambda: nn.nn_min(src, dst, mask),
+            lambda: nn.nn_min_torch(src, dst, mask),
+            ("nn_kernel", "nn_merge_kernel"), float(n) * m,
+            n * 12 + m * 13 + n * 12, K3_INSTRUCTIONS,
+            nn.split_count(n, m, nn.sm_count(dev)), dev, cdist=(src, dst)))
+    log("K3 nn: bit-identical to its plain version (d^2 and index) at "
+        "every shape")
+    return {**shapes[0], "shapes": shapes}
+
+
+def pair_icp_clouds(batch, intr, dev):
+    """K4's operands at the pair-ICP shape: frames 1 and 0 of the capture
+    through refine._frame_points_normals, the source moved by the prior and
+    the window sized as refine_trajectory does, both sorted as ICP sorts
+    them, at the widest annealing threshold."""
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch.core.se3 import invert_se3
+    from otslam_tpu_torch.kernels import nn
+    from otslam_tpu_torch.kernels.icp import _sorted_for_window
+    from otslam_tpu_torch.pipeline import refine
+    depths = torch.as_tensor(batch.depths[:2], device=dev)
+    prev_pts, _, prev_valid = refine._frame_points_normals(depths[0], intr)
+    cur_pts, _, cur_valid = refine._frame_points_normals(depths[1], intr)
+    window, axis = refine._pair_nn_window(cur_pts, prev_pts, PAIR_RADIUS)
+    ext = np.asarray(batch.extrinsics, np.float64)
+    src = refine._moved(cur_pts, ext[0] @ invert_se3(ext[1]))
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    src, dst, _, dmask, _ = _sorted_for_window(src, prev_pts, cur_valid,
+                                               prev_valid, eye, axis)
+    check(window * nn.DST_CHUNK < dst.shape[0], f"pair-ICP window {window} "
+          f"covers the {dst.shape[0]}-point cloud: ICP would take K3")
+    return src, dst, dmask, axis, window
+
+
+def k4_shape(nn, label, src, dst, mask, radius, axis, dev):
+    """K4 at one shape: bit-identical to its plain version, equal to K3 on
+    every in-radius row, >= the radius elsewhere; then its times."""
+    import torch
+    dstp, dmaskp, c0, c1 = nn.window_ranges(src, dst, mask, radius, axis)
+    d_k, i_k = nn.nn_min_windowed(src, dstp, dmaskp, c0, c1)
+    d_p, i_p = nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1)
+    d_3, i_3 = nn.nn_min(src, dst, mask)
     torch.cuda.synchronize()
-    rel = float(((d_k - d_p).abs() / d_p.clamp(min=1e-30)).max())
-    check(rel <= 1e-6, f"K3 squared distances rel err {rel} > 1e-6")
-    diff = i_k != i_p
-    if bool(diff.any()):
-        # an index may differ only at a tie: both candidates equally near
-        dk = ((src[diff] - gt[i_k[diff]]) ** 2).sum(-1)
-        dp = ((src[diff] - gt[i_p[diff]]) ** 2).sum(-1)
-        check(bool(((dk - dp).abs() <= 1e-6 * dp).all()),
-              "K3 indices differ off ties")
-    dist_err = float((d_k.sqrt() - d_p.sqrt()).abs().max())
-    ms = cuda_ms(lambda: nn.nn_min(src, gt, mask), 10)
-    plain_ms = cuda_ms(lambda: nn.nn_min_torch(src, gt, mask), 3)
-    dev_ms = kernel_ms(lambda: nn.nn_min(src, gt, mask), 10, "nn_kernel")
-    lib_ms = cdist_min_ms(src, gt)
-    # src, dst and the mask read once, d2 and index written once; 8 f32
-    # operations a pair (3 differences, 3 squares, 2 sums)
-    b = bound(SRC_POINTS * 12 + GT_POINTS * 13 + SRC_POINTS * 8,
-              8.0 * SRC_POINTS * GT_POINTS)
-    log(f"K3 nn: {SRC_POINTS} x {GT_POINTS}, rel err {rel:.3g}, index "
-        f"mismatches {int(diff.sum())} (ties), kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, kernel alone {fmt_ms(dev_ms)}, "
-        f"torch.cdist().min() {lib_ms:.4f} ms, bound "
-        f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"max_abs_err": dist_err, "ms": ms, "kernel_ms": dev_ms,
-            "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+    check(bool(torch.equal(d_k, d_p)) and bool(torch.equal(i_k, i_p)),
+          f"K4 differs from its plain version at {label} on "
+          f"{int(((d_k != d_p) | (i_k != i_p)).sum())} rows")
+    inl = d_3.sqrt() < radius
+    check(bool(torch.equal(d_k[inl], d_3[inl]))
+          and bool(torch.equal(i_k[inl], i_3[inl])),
+          f"K4 differs from K3 at {label} on rows with a neighbour within "
+          "the radius")
+    check(bool((d_k[~inl].sqrt() >= radius).all()),
+          f"K4 gives d < radius at {label} on a row whose nearest "
+          "neighbour is farther")
+    n, mp = src.shape[0], dstp.shape[0]
+    # the pairs this data needs: each 256-row tile against its chunk range
+    tile_rows = torch.full_like(c0, nn.SRC_TILE)
+    tile_rows[-1] = n - nn.SRC_TILE * (c0.numel() - 1)
+    lo = c0.clamp(min=0) * nn.DST_CHUNK
+    hi = (c1 * nn.DST_CHUNK).clamp(max=mp)
+    pairs = float((tile_rows * (hi - lo).clamp(min=0)).sum())
+    log(f"  {label}: radius {radius}, axis {axis}, mean chunks scanned per "
+        f"tile {float((c1 - c0).clamp(min=0).float().mean()):.2f} of "
+        f"{mp // nn.DST_CHUNK}, in-radius rows {int(inl.sum())} of {n}")
+    return nn_record(
+        label, lambda: nn.nn_min_windowed(src, dstp, dmaskp, c0, c1),
+        lambda: nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1),
+        ("nn_window_kernel", "nn_merge_kernel"), pairs,
+        n * 12 + mp * 13 + c0.numel() * 8 + n * 12, K4_INSTRUCTIONS,
+        nn.split_count(n, mp, nn.sm_count(dev)), dev, cdist=(src, dst))
 
 
-def phase_k4(dev):
+def phase_k4(dev, batch, intr):
+    """K4 at the eval's GT alignment shape (50k x 50k, radius 0.05 m) and at
+    the pair-ICP shape."""
     import numpy as np
     import torch
 
@@ -344,48 +508,58 @@ def phase_k4(dev):
     gt = gt[torch.argsort(gt[:, axis], stable=True)]
     src = src[torch.argsort(src[:, axis], stable=True)]
     mask = torch.ones(GT_POINTS, dtype=torch.bool, device=dev)
-    dstp, dmaskp, c0, c1 = nn.window_ranges(src, gt, mask, NN_RADIUS, axis)
-    d_k, i_k = nn.nn_min_windowed(src, dstp, dmaskp, c0, c1)
-    d_p, i_p = nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1)
-    d_3, i_3 = nn.nn_min(src, gt, mask)
-    torch.cuda.synchronize()
-    check(bool(torch.equal(d_k, d_p)) and bool(torch.equal(i_k, i_p)),
-          f"K4 differs from its plain version at "
-          f"{int(((d_k != d_p) | (i_k != i_p)).sum())} rows")
-    inl = d_3.sqrt() < NN_RADIUS
-    check(bool(torch.equal(d_k[inl], d_3[inl]))
-          and bool(torch.equal(i_k[inl], i_3[inl])),
-          "K4 differs from K3 on rows with a neighbour within the radius")
-    check(bool((d_k[~inl].sqrt() >= NN_RADIUS).all()),
-          "K4 gives d < radius on a row whose nearest neighbour is farther")
-    scanned = float(((c1 - c0).clamp(min=0)).float().mean())
-    ms = cuda_ms(lambda: nn.nn_min_windowed(src, dstp, dmaskp, c0, c1), 10)
-    plain_ms = cuda_ms(
-        lambda: nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1), 3)
-    dev_ms = kernel_ms(lambda: nn.nn_min_windowed(src, dstp, dmaskp, c0, c1),
-                       10, "nn_window_kernel")
-    k3_ms = cuda_ms(lambda: nn.nn_min(src, gt, mask), 10)
+    shapes = [k4_shape(nn, f"eval {GT_POINTS} x {GT_POINTS}", src, gt, mask,
+                       NN_RADIUS, axis, dev)]
     wrapper_ms = cuda_ms(lambda: nn.nn_distance_radius(
         src, gt, NN_RADIUS, window_chunks=window, axis=axis), 10)
-    lib_ms = cdist_min_ms(src, gt)
-    # the pairs this data needs: each 256-row tile against its chunk range
-    tile_rows = torch.full_like(c0, nn.SRC_TILE)
-    tile_rows[-1] = GT_POINTS - nn.SRC_TILE * (c0.numel() - 1)
-    pairs = float((tile_rows * (c1 - c0).clamp(min=0) * nn.DST_CHUNK).sum())
-    b = bound(GT_POINTS * 12 + dstp.shape[0] * 13 + c0.numel() * 8
-              + GT_POINTS * 8, 8.0 * pairs)
-    log(f"K4 windowed nn: {GT_POINTS} x {GT_POINTS}, radius {NN_RADIUS}, "
-        f"axis {axis}, auto window {window} of {nchunks} chunks, mean "
-        f"chunks scanned per tile {scanned:.2f}, in-radius rows "
-        f"{int(inl.sum())}, identical to its plain version on every row "
-        f"and to K3 on every in-radius row; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, kernel alone {fmt_ms(dev_ms)}, K3 "
-        f"{k3_ms:.4f} ms, nn_distance_radius (ranges + K4 + recompute) "
-        f"{wrapper_ms:.4f} ms, torch.cdist().min() {lib_ms:.4f} ms, pairs "
-        f"scanned {pairs:.0f}, bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']})")
-    return {"max_abs_err": 0.0, "ms": ms, "kernel_ms": dev_ms,
-            "plain_ms": plain_ms, "k3_ms": k3_ms, **b, "library_ms": lib_ms}
+    psrc, pdst, pmask, paxis, pwin = pair_icp_clouds(batch, intr, dev)
+    shapes.append(k4_shape(
+        nn, f"pair ICP {psrc.shape[0]} x {pdst.shape[0]}", psrc, pdst, pmask,
+        PAIR_RADIUS, paxis, dev))
+    log(f"K4 windowed nn: bit-identical to its plain version at every "
+        f"shape, and to K3 on every in-radius row; nn_distance_radius "
+        f"(ranges + K4 + recompute) at 50k x 50k {wrapper_ms:.4f} ms; "
+        f"pair-ICP window {pwin} chunks")
+    return {**shapes[0], "shapes": shapes}
+
+
+def phase_reconstruct(batch, intr, cfg, dev, gt):
+    """The main path (phase 4): reconstruct_frames with `cfg` and an auto
+    volume, then write_ply -> read_ply -> evaluate_map against `gt`. Fails
+    on an empty or non-finite cloud or an accuracy >= 1 cm."""
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch.core import io as tio
+    from otslam_tpu_torch.eval.metrics import evaluate_map
+    from otslam_tpu_torch.pipeline.reconstruct import reconstruct_frames
+    stages: dict = {}
+    t0 = time.perf_counter()
+    res = reconstruct_frames(batch, intr, cfg, backend="pallas",
+                             auto_origin=True, device=dev, seed=0,
+                             timings=stages)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "Object_0.ply")
+        t1 = time.perf_counter()
+        tio.write_ply(path, res.points, colors=res.colors,
+                      normals=res.normals)
+        cloud = tio.read_ply(path)["points"]
+        stages["ply"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    metrics = evaluate_map(cloud, gt, device=dev)
+    torch.cuda.synchronize()
+    stages["eval"] = time.perf_counter() - t1
+    total = time.perf_counter() - t0
+    log("main path stages (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + f", total {total:.4f}")
+    log(f"main path: raw surface points {res.raw_surface_count}, cloud "
+        f"{len(cloud)} points, accuracy {metrics.accuracy_cm:.4f} cm, "
+        f"completeness {metrics.completeness_cm:.4f} cm")
+    check(cloud.ndim == 2 and cloud.shape[1] == 3 and len(cloud) > 0,
+          f"cloud shape {cloud.shape}")
+    check(bool(np.isfinite(cloud).all()), "cloud has non-finite points")
+    check(metrics.accuracy_cm < 1.0,
+          f"accuracy {metrics.accuracy_cm} cm >= 1 cm")
 
 
 def drift(exts, seed: int = 0, t_sigma: float = 0.012,
@@ -415,14 +589,10 @@ def phase_registration(batch, intr, cfg, dev, gt):
     import numpy as np
     import torch
 
-    from otslam_tpu_torch.config import LidarConfig
     from otslam_tpu_torch.core import io as tio
     from otslam_tpu_torch.eval.metrics import evaluate_map
-    from otslam_tpu_torch.mapping.localize import ScanLocalizer
     from otslam_tpu_torch.pipeline.reconstruct import reconstruct_frames
     from otslam_tpu_torch.pipeline.refine import trajectory_error
-    from otslam_tpu_torch.sim.sensors import render_lidar
-    from otslam_tpu_torch.sim.world import cardboard_room
 
     drifted = dataclasses.replace(batch,
                                   extrinsics=drift(batch.extrinsics))
@@ -467,22 +637,14 @@ def phase_registration(batch, intr, cfg, dev, gt):
           f"pgo translation RMSE {errors['pgo']} m is not below the "
           f"drifted odometry's {t_odo} m")
 
-    lidar = LidarConfig()
-    scene = cardboard_room()
-    angles = np.linspace(0, 2 * np.pi, lidar.num_beams,
-                         endpoint=False).astype(np.float32)
-    true = (0.6, -1.1, 0.8)
-    scan = render_lidar(scene, *true, angles, lidar.range_min,
-                        lidar.range_max, device=dev)
-    prior = (true[0] + 0.08, true[1] - 0.06, true[2] + 0.07)
+    loc, scan, angles, prior, true = localizer_case(dev)
     t0 = time.perf_counter()
-    loc = ScanLocalizer(scene.occupancy_grid(0.05), device=dev)
     pose = loc.localize(scan, angles, prior)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     pos_err = float(np.hypot(pose.x - true[0], pose.y - true[1]))
     yaw_err = abs(pose.yaw - true[2])
-    log(f"localize: {lidar.num_beams} beams, map {len(loc._map_np)} cells, "
+    log(f"localize: {len(angles)} beams, map {len(loc._map_np)} cells, "
         f"prior off 0.1000 m / 0.0700 rad -> off {pos_err:.6f} m / "
         f"{yaw_err:.6f} rad, fitness {pose.fitness:.4f}, {secs:.4f} s")
     check(pos_err < 0.04 and yaw_err < 0.02,
@@ -642,17 +804,12 @@ def main() -> int:
         print(f"chip_smoke: the otslam_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 1
-    import numpy as np
-
     from otslam_tpu_torch.config import ReconstructionConfig
-    from otslam_tpu_torch.core import io as tio
-    from otslam_tpu_torch.eval.metrics import evaluate_map
     from otslam_tpu_torch.eval.scenarios import scenario_gt
     from otslam_tpu_torch.kernels import _build, nn, raycast
     from otslam_tpu_torch.kernels import tsdf_cuda as tc
     from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
-    from otslam_tpu_torch.pipeline.reconstruct import (
-        auto_volume_config, reconstruct_frames)
+    from otslam_tpu_torch.pipeline.reconstruct import auto_volume_config
 
     dev = torch.device("cuda:0")
     # --- 1. device --------------------------------------------------------
@@ -693,7 +850,7 @@ def main() -> int:
     torch.cuda.synchronize()
     k3 = phase_k3(dev)
     torch.cuda.synchronize()
-    k4 = phase_k4(dev)
+    k4 = phase_k4(dev, batch, intr)
     torch.cuda.synchronize()
     del depths, colors, exts, band, vis
 
@@ -703,37 +860,12 @@ def main() -> int:
                 nn.nn_min_windowed, raycast.ray_keys)
     for fn in counters:
         fn.launches = 0
-    stages: dict = {}
-    t0 = time.perf_counter()
-    res = reconstruct_frames(batch, intr, cfg, backend="pallas",
-                             auto_origin=True, device=dev, seed=0,
-                             timings=stages)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "Object_0.ply")
-        t1 = time.perf_counter()
-        tio.write_ply(path, res.points, colors=res.colors,
-                      normals=res.normals)
-        cloud = tio.read_ply(path)["points"]
-        stages["ply"] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    metrics = evaluate_map(cloud, gt, device=dev)
-    torch.cuda.synchronize()
-    stages["eval"] = time.perf_counter() - t1
-    total = time.perf_counter() - t0
+    phase_reconstruct(batch, intr, cfg, dev, gt)
     launches = {fn.__name__: fn.launches for fn in counters}
-    log("main path stages (s): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in stages.items()) + f", total {total:.4f}")
-    log(f"main path: raw surface points {res.raw_surface_count}, cloud "
-        f"{len(cloud)} points, accuracy {metrics.accuracy_cm:.4f} cm, "
-        f"completeness {metrics.completeness_cm:.4f} cm, launches {launches}")
-    check(cloud.ndim == 2 and cloud.shape[1] == 3 and len(cloud) > 0,
-          f"cloud shape {cloud.shape}")
-    check(bool(np.isfinite(cloud).all()), "cloud has non-finite points")
+    log(f"main path launches {launches}")
     path_kernels = ("classify_blocks", "fuse_blocks", "nn_min")
     check(all(launches[k] > 0 for k in path_kernels),
           f"a kernel of the path never launched: {launches}")
-    check(metrics.accuracy_cm < 1.0,
-          f"accuracy {metrics.accuracy_cm} cm >= 1 cm")
 
     # --- 6. registration path ---------------------------------------------
     for fn in counters:

@@ -12,9 +12,12 @@ The library lands under ``build/`` at the root of the checkout, in a
 directory named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused.
 
-``-fmad=false``: the kernels are memory-bound, so contraction buys nothing,
-and a fused multiply-add would round differently from the plain PyTorch
-versions (flipping ``rint(u)`` at .5 and the band comparisons).
+``-fmad=false``: a fused multiply-add would round differently from the
+plain PyTorch versions (flipping ``rint(u)`` at .5, the band comparisons,
+a ray's cell and a nearest neighbour's d^2), and bit-identity with them is
+the card check. It has a price: K3, K4 and K5 are bound by instruction
+throughput and latency, not memory, and contraction would cut K3/K4's
+arithmetic from 8 to 6 instructions a pair.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 `check` raises on a non-zero code.
@@ -53,9 +56,11 @@ SIGNATURES = {
                     _P, _P, _P, _I, _I, _I, _I,         # depth cpk ext H W gby gbz
                     _F, _F, _F, _F, _F, _F, _F, _F,     # ox oy oz vs fx fy cx cy
                     _F, _F, _P],                        # trunc 1/trunc stream
-    "otslam_nn": [_P, _P, _I, _I, _P, _P, _P],          # src dst n m bd bi stream
-    "otslam_nn_window": [_P, _P, _P, _P, _I, _I,        # src dst c0 c1 n mp
-                         _P, _P, _P],                   # bd bi stream
+    "otslam_nn": [_P, _P, _P, _I, _I, _I,               # src dst mask n m S
+                  _P, _P, _P, _P],                      # bd bi parts stream
+    "otslam_nn_window": [_P, _P, _P, _P, _P,            # src dst mask c0 c1
+                         _I, _I, _I, _P, _P, _P, _P],   # n mp S bd bi parts
+                                                        # stream
     "otslam_raycast": [_P, _I, _I, _P, _P, _P, _I, _I,  # grid H W cos sin xy B KB
                        _I, _F, _F, _F, _P, _P, _P],     # S res ox oy fs fo stream
 }

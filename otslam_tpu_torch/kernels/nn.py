@@ -15,6 +15,12 @@ radius: `window_ranges` computes each tile's chunk range [c0, c1) on the
 device, and `nn_min_windowed` (kernel K4 in csrc/nn.cu on CUDA tensors, its
 plain version `nn_min_windowed_torch` on CPU tensors) scans it.
 
+Both kernels give a block to each 256-row source tile. When the tiles
+alone cannot fill the card (`split_count`, from the sizes and the SM count
+only), each tile's range is split over S blocks whose results merge by the
+exact 64-bit key (bits(d2) << 32) | index (`pack_keys` states it in torch),
+so the lowest-index rule holds whatever the split.
+
 Not ported, because each exists only for the TPU's MXU and VMEM: the 3-way
 bf16 operand split (_hilo3) and K=24 packing, destination slabbing, the
 VMEM size routing (_WINDOWED_MAX_DST, _nn_vmem_params), the 128-aligned
@@ -25,6 +31,8 @@ gives every tile the whole range).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -32,8 +40,68 @@ from otslam_tpu_torch.kernels import _build
 
 BIG = 3.0e38        # f32 "no valid destination" distance (nn._BIG)
 SRC_CHUNK = 4096    # source rows per step of the plain version
-SRC_TILE = 256      # source rows per window (nn._SRC_TILE, K4's block)
+SRC_TILE = 256      # source rows per window (nn._SRC_TILE, a K3/K4 block)
 DST_CHUNK = 1024    # destination rows per window chunk (nn._DST_CHUNK)
+BLOCKS_PER_SM = 2   # K3/K4 split each tile's range below this many blocks
+SPLIT_BLOCKS_PER_SM = 8  # ... into enough splits for this many blocks
+MIN_SPLIT_DST = 256  # ... but give a split at least this many destinations
+
+
+def split_count(n: int, m: int, sms: int) -> int:
+    """Blocks S that share each source tile's destination range in K3/K4.
+
+    1 when the ceil(n / 256) tiles give at least BLOCKS_PER_SM blocks an
+    SM; else enough splits for SPLIT_BLOCKS_PER_SM blocks an SM (many
+    short blocks balance tiles whose ranges differ), but no fewer than
+    MIN_SPLIT_DST of the m destinations a split on average."""
+    tiles = -(-n // SRC_TILE)
+    if tiles == 0 or tiles >= BLOCKS_PER_SM * sms:
+        return 1
+    want = SPLIT_BLOCKS_PER_SM * sms
+    return max(1, min(-(-want // tiles), m // MIN_SPLIT_DST))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per device."""
+    dev = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if dev.index is None
+                     else dev.index)
+
+
+def pack_keys(d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The 64-bit merge key of csrc/nn.cu, (bits(d2) << 32) | idx, as int64:
+    for d2 >= +0 (inf included) the top bit is 0, so int64 order is the
+    kernel's unsigned order: least d2 first, then least index."""
+    bits = d2.to(torch.float32).contiguous().view(torch.int32)
+    return (bits.to(torch.int64) << 32) | idx.to(torch.int64)
+
+
+def unpack_keys(keys: torch.Tensor):
+    """(d2 f32, idx int64) of pack_keys' keys."""
+    d2 = (keys >> 32).to(torch.int32).contiguous().view(torch.float32)
+    return d2, keys & 0xFFFFFFFF
+
+
+def _operands(src, dst, mask):
+    """The kernels' inputs as they take them: f32 (n, 3), f32 (m, 3), bool
+    (m,), contiguous (no copy when they already are)."""
+    return (src.to(torch.float32).contiguous(),
+            dst.to(torch.float32).contiguous(),
+            mask.to(torch.bool).contiguous())
+
+
+def _outputs(n: int, splits: int, device):
+    """best_d (n,) f32, best_i (n,) int64, and the (splits, n) key scratch
+    of a split launch (empty when splits == 1)."""
+    return (torch.empty(n, dtype=torch.float32, device=device),
+            torch.empty(n, dtype=torch.int64, device=device),
+            torch.empty((splits, n) if splits > 1 else (0,),
+                        dtype=torch.int64, device=device))
 
 
 def nn_min_torch(src: torch.Tensor, dst: torch.Tensor,
@@ -66,19 +134,17 @@ def nn_min(src: torch.Tensor, dst: torch.Tensor, dst_mask: torch.Tensor):
     if src.device.type == "cpu":
         return nn_min_torch(src, dst, dst_mask)
     n, m = src.shape[0], dst.shape[0]
-    srcc = src.to(torch.float32).contiguous()
-    dst4 = torch.cat([dst.to(torch.float32),
-                      dst_mask.to(torch.float32)[:, None]], dim=1).contiguous()
-    best_d = torch.empty(n, dtype=torch.float32, device=src.device)
-    best_i = torch.empty(n, dtype=torch.int32, device=src.device)
-    _build.check_operands(srcc, dst4, best_d, best_i)
+    srcc, dstc, maskc = _operands(src, dst, dst_mask)
+    splits = split_count(n, m, sm_count(src.device))
+    best_d, best_i, parts = _outputs(n, splits, src.device)
+    _build.check_operands(srcc, dstc, maskc, best_d, best_i, parts)
     lib = _build.load()
-    code = lib.otslam_nn(srcc.data_ptr(), dst4.data_ptr(), n, m,
-                         best_d.data_ptr(), best_i.data_ptr(),
-                         _build.stream_ptr(src.device))
+    code = lib.otslam_nn(srcc.data_ptr(), dstc.data_ptr(), maskc.data_ptr(),
+                         n, m, splits, best_d.data_ptr(), best_i.data_ptr(),
+                         parts.data_ptr(), _build.stream_ptr(src.device))
     _build.check(code, "otslam_nn")
     nn_min.launches += 1
-    return best_d, best_i.to(torch.int64)
+    return best_d, best_i
 
 
 nn_min.launches = 0
@@ -230,21 +296,21 @@ def nn_min_windowed(src: torch.Tensor, dstp: torch.Tensor,
     if mp % DST_CHUNK or c0.shape[0] != ntiles or c1.shape[0] != ntiles:
         raise ValueError("nn_min_windowed: dst must be chunk-padded and "
                          "c0/c1 hold one range per 256-row source tile")
-    srcc = src.to(torch.float32).contiguous()
-    dst4 = torch.cat([dstp.to(torch.float32),
-                      dmaskp.to(torch.float32)[:, None]], dim=1).contiguous()
+    srcc, dstc, maskc = _operands(src, dstp, dmaskp)
     c0, c1 = (c.to(torch.int32).contiguous() for c in (c0, c1))
-    best_d = torch.empty(n, dtype=torch.float32, device=src.device)
-    best_i = torch.empty(n, dtype=torch.int32, device=src.device)
-    _build.check_operands(srcc, dst4, c0, c1, best_d, best_i)
+    splits = split_count(n, mp, sm_count(src.device))
+    best_d, best_i, parts = _outputs(n, splits, src.device)
+    _build.check_operands(srcc, dstc, maskc, c0, c1, best_d, best_i, parts)
     lib = _build.load()
-    code = lib.otslam_nn_window(srcc.data_ptr(), dst4.data_ptr(),
-                                c0.data_ptr(), c1.data_ptr(), n, mp,
+    code = lib.otslam_nn_window(srcc.data_ptr(), dstc.data_ptr(),
+                                maskc.data_ptr(), c0.data_ptr(),
+                                c1.data_ptr(), n, mp, splits,
                                 best_d.data_ptr(), best_i.data_ptr(),
+                                parts.data_ptr(),
                                 _build.stream_ptr(src.device))
     _build.check(code, "otslam_nn_window")
     nn_min_windowed.launches += 1
-    return best_d, best_i.to(torch.int64)
+    return best_d, best_i
 
 
 nn_min_windowed.launches = 0

@@ -168,6 +168,89 @@ def test_windowed_nn_refuses_bad_operands(dev):
         nn.nn_min_windowed(src, dstp, dmaskp, c0.cpu(), c1)
 
 
+def split_clouds(case, sms):
+    """(src, dst, mask) for the split-and-merge cases; `sms` sizes the
+    eval case so its tiles alone fill the card (S = 1)."""
+    rng = np.random.default_rng(len(case))
+    n, m = {"localizer": (1440, 1694),
+            "eval": (nn.BLOCKS_PER_SM * sms * nn.SRC_TILE + 1000, 4000)}.get(
+                case, (3000, 1999))       # no multiple of the tile or stage
+    dst = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
+    src = (dst[rng.integers(0, m, n)]
+           + rng.normal(0, 0.01, (n, 3))).astype(np.float32)
+    mask = np.ones(m, bool)
+    if case == "masked":
+        mask[:] = False
+    if case == "ties":
+        # equal points at indices on both sides of a split boundary
+        per = -(-m // nn.split_count(n, m, sms))
+        dst[per] = dst[per - 1]
+        dst[per + 5] = dst[3]
+        src[:10] = dst[per - 1]
+        src[10:20] = dst[3]
+    return src, dst, mask
+
+
+@pytest.mark.parametrize("case", ["localizer", "eval", "ragged", "ties",
+                                  "masked"])
+def test_nn_kernels_split_and_merge_match_plain(dev, case):
+    """K3 and K4 in both launch regimes (one block a tile, S = 1, and a
+    split range merged by the 64-bit key, S > 1): d^2 and index
+    bit-identical to the plain versions, lowest index on ties across a
+    split boundary, (BIG, 0) with every destination masked, and K4 equal
+    to K3 on every in-radius row."""
+    sms = nn.sm_count(dev)
+    src, dst, mask = split_clouds(case, sms)
+    n, m = len(src), len(dst)
+    splits = nn.split_count(n, m, sms)
+    if case == "eval":
+        assert splits == 1
+    elif case in ("localizer", "ties"):
+        assert splits > 1
+    src, dst, mask = (torch.as_tensor(a, device=dev)
+                      for a in (src, dst, mask))
+    dk, ik = nn.nn_min(src, dst, mask)
+    dp, ip = nn.nn_min_torch(src, dst, mask)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    if case == "ties":
+        per = -(-m // splits)
+        assert torch.all(ik[:10] == per - 1) and torch.all(ik[10:20] == 3)
+    if case == "masked":
+        assert torch.all(dk == nn.BIG) and torch.all(ik == 0)
+    # K4 on the clouds sorted on z, as ICP sorts them
+    src = src[torch.argsort(src[:, 2], stable=True)]
+    order = torch.argsort(dst[:, 2], stable=True)
+    dst, mask = dst[order], mask[order]
+    dstp, dmaskp, c0, c1 = nn.window_ranges(src, dst, mask, 0.1, 2)
+    dk, ik = nn.nn_min_windowed(src, dstp, dmaskp, c0, c1)
+    dp, ip = nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    d3, i3 = nn.nn_min(src, dst, mask)
+    inl = d3.sqrt() < 0.1
+    assert torch.equal(dk[inl], d3[inl]) and torch.equal(ik[inl], i3[inl])
+
+
+def test_windowed_nn_kernel_empty_ranges(dev):
+    """K4 tiles whose chunk range is empty (c0 == c1) or inverted
+    (c0 > c1) scan nothing and give (BIG, 0), as the plain version does,
+    in a split launch."""
+    src, dst = windowed_clouds(3000, 6000)
+    src, dst = torch.as_tensor(src, device=dev), torch.as_tensor(dst,
+                                                                 device=dev)
+    mask = torch.ones(6000, dtype=torch.bool, device=dev)
+    dstp, dmaskp, c0, c1 = nn.window_ranges(src, dst, mask, 0.1, 2)
+    c1[::2] = c0[::2]
+    c0[1] = c1[1] + 1
+    assert nn.split_count(3000, dstp.shape[0], nn.sm_count(dev)) > 1
+    dk, ik = nn.nn_min_windowed(src, dstp, dmaskp, c0, c1)
+    dp, ip = nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    tiles = torch.arange(3000, device=dev) // nn.SRC_TILE
+    empty = (c1 <= c0)[tiles]
+    assert torch.all(dk[empty] == nn.BIG) and torch.all(ik[empty] == 0)
+    assert torch.all(dk[~empty] < nn.BIG)
+
+
 def test_wrappers_refuse_mixed_devices(dev, frames):
     depths, _, exts = frames
     meta = ttb.make_block_volume(VOL, dev).meta

@@ -126,3 +126,74 @@ def test_resample_with_generator_is_seeded_and_in_range():
     assert float(a[:, 0].max()) <= 59 * 3       # only the 60 valid rows
     with pytest.raises(ValueError):
         resample_points(pts, mask, 10, draws=torch.zeros(9))
+
+
+def test_merge_keys_order_by_d2_then_index():
+    """The 64-bit key K3/K4 merge split launches by: its order is d2's
+    (over +0, denormals, ordinary values, BIG and inf), then the index's,
+    and it unpacks to what was packed."""
+    d2 = torch.tensor([0.0, 1e-45, 1e-40, 1.2e-38, 1e-10, 0.25, 0.25, 3.0,
+                       tnn.BIG, float("inf")], dtype=torch.float32)
+    idx = torch.tensor([7, 5, 0, 3, 2**31 - 1, 9, 4, 0, 0, 1])
+    keys = tnn.pack_keys(d2, idx)
+    lex = sorted(range(len(d2)), key=lambda k: (float(d2[k]), int(idx[k])))
+    assert torch.argsort(keys).tolist() == lex
+    back_d2, back_idx = tnn.unpack_keys(keys)
+    assert torch.equal(back_d2.view(torch.int32), d2.view(torch.int32))
+    assert torch.equal(back_idx, idx)
+
+
+def split_merge_mirror(src, dst, mask, splits):
+    """The kernels' split launch in plain torch: each of `splits` blocks
+    scans its slice of the destination (nothing in range gives (BIG, 0)),
+    and the least packed key of each row wins."""
+    m = dst.shape[0]
+    per = -(-m // splits)
+    keys = []
+    for s in range(splits):
+        lo, hi = min(s * per, m), min((s + 1) * per, m)
+        d, i = tnn.nn_min_torch(src, dst[lo:hi], mask[lo:hi])
+        if hi == lo:
+            d = torch.full((src.shape[0],), tnn.BIG)
+            i = torch.zeros(src.shape[0], dtype=torch.int64)
+        keys.append(tnn.pack_keys(d, torch.where(d < tnn.BIG, i + lo, 0)))
+    return tnn.unpack_keys(torch.stack(keys).amin(dim=0))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+def test_split_merge_equals_the_full_scan(splits):
+    """Split and merged by the key, the scan equals nn_min_torch bit for
+    bit, on duplicated destinations at indices across every slice boundary
+    and on rows whose only valid neighbours lie in one slice."""
+    rng = np.random.default_rng(splits)
+    m = 701
+    dst = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
+    per = -(-m // splits)
+    for s in range(1, splits):             # ties straddling each boundary
+        dst[s * per] = dst[s * per - 1]
+        dst[min(s * per + 3, m - 1)] = dst[2]
+    edges = [s * per - 1 for s in range(1, splits)]
+    src = np.concatenate([dst[:40], dst[edges].reshape(-1, 3),
+                          rng.uniform(-1, 1, (300, 3))]).astype(np.float32)
+    mask = rng.random(m) > 0.2
+    mask[2] = True
+    for e in edges:
+        mask[e] = mask[e + 1] = True
+    src_t, dst_t, mask_t = (torch.from_numpy(a) for a in (src, dst, mask))
+    for mk in (mask_t, torch.zeros_like(mask_t)):
+        d, i = split_merge_mirror(src_t, dst_t, mk, splits)
+        dp, ip = tnn.nn_min_torch(src_t, dst_t, mk)
+        assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+@pytest.mark.parametrize("n, m, splits", [
+    (100_000, 50_000, 1),        # the eval's chamfer: 391 tiles fill it
+    (1440, 1694, 6),             # the localizer: 6 tiles, 256 dst a split
+    (19_200, 19_456, 15),        # pair ICP: 75 tiles
+    (50_000, 50_176, 6),         # the eval's GT alignment (K4)
+])
+def test_split_count_at_the_path_shapes(n, m, splits):
+    """Splits on a 132-SM H100 at the shapes the paths launch."""
+    assert tnn.split_count(n, m, 132) == splits
+    assert tnn.split_count(0, m, 132) == 1
+    assert tnn.split_count(n, 0, 132) == 1
