@@ -10,8 +10,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 3. each kernel against its plain PyTorch version at the main path's shapes
    (64 VGA frames, 1 cm voxels, a 256^3 volume = 32768 blocks, and
    100k x 50k points), with CUDA-event times for both:
-   K2 block classification (bit-identical), K1 block fusion (weights equal,
-   tsdf <= 1e-5, colour <= 1e-3), K3 nearest neighbour (d^2 and index
+   K2 block classification (bit-identical), K1 block fusion (tsdf, weight
+   and colour bit-identical) at the reconstruction's 64-frame batch and at frame-to-model
+   tracking's one frame (frame 32 into the volume of frames 0-31, capped at
+   max_active = 2048 blocks), K3 nearest neighbour (d^2 and index
    bit-identical) at the eval's 100k x 50k and 50k x 100k and at the
    localizer's 1440-beam scan against the cardboard room's 0.05 m grid
    cloud (the operands of the first K3 call of a real
@@ -37,8 +39,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    must localize to < 4 cm and < 0.02 rad;
 7. K5 ray casting against its plain version at the perception workload:
    1440 beams, range 10 m (200 steps), 64 poses in one call, on the
-   cardboard room's 208^2 map and full_room's map (bit-identical keys and
-   ranges), with CUDA-event times, hit beams and samples per second;
+   cardboard room's 208^2 map and full_room's map, and the mission's 8
+   poses on the cardboard map (bit-identical keys and ranges, at every
+   lane count a ray), with CUDA-event times, hit
+   beams and samples per second;
 8. mission path: `python -m otslam_tpu_torch.cli mission` (through its
    main()) at the CLI's defaults (VGA camera, 1440 beams, 512^2 evidence
    grid, cardboard scenario) with --removed --localizer
@@ -55,9 +59,11 @@ and `kernel_ms`, the kernel alone in a torch.profiler trace (K3/K4: the
 scan and, for a split launch, the merge). It carries its bound too: the
 larger of the bytes it must move over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s (the H100 SXM's published peaks), at this run's shapes and
-data; K3 and K4 also a `shapes` list with a record per shape (the log
-gives each shape's split S, its pairs and the instruction floor of the
-kernel's unfused arithmetic beside it). The line before the last two is
+data; K1, K3, K4 and K5 also a `shapes` list with a record per shape (the
+log gives each shape's pairs or samples and the instruction floor of the
+kernel's unfused arithmetic beside it, K3/K4 their split S; K5's records
+hold the kernel alone at each lane count, K1's and K5's the registers
+ptxas reports). The line before the last two is
 the kernels' JSON record, then the nvidia-smi name/power line; the last
 line is {"ok": true, "device": {...}}. JAX and otslam_tpu are never
 imported. profile_paths.py drives phases 4, 6 and 8 under a profiler.
@@ -92,6 +98,30 @@ SM_CLOCK_HZ = 1.98e9          # H100 SXM boost clock
 # branch a group of 4 destinations
 K3_INSTRUCTIONS = 9.3
 K4_INSTRUCTIONS = 11.0
+# lane instructions of one IEEE f32 division (div.rn.f32) as nvcc emits it
+# for sm_90a: the reciprocal estimate, 5 fused multiply-adds of the
+# refinement, the range check, its branch and the reconvergence pair
+# around it (the slow path, for operands near the range limits, not
+# counted)
+DIV_INSTRUCTIONS = 10
+# K1, a (voxel, frame) pair, counted from the arithmetic of
+# csrc/tsdf_fuse.cu (the SASS issues ~184, see sass_loops): projection 18
+# (9 products, 9 sums), in-front test and safe z 2, each pixel coordinate
+# 5 + a division (product, sum, rint, clamp, cast), the bounds test 4, the
+# address 6, the two loads 2, sdf, validity and the observed tsdf 6, colour
+# unpacking 9 (3 fields, 3 casts, 3 products), the weight 2 and the four
+# means 3 + a division each
+K1_INSTRUCTIONS = 18 + 2 + 2 * 5 + 4 + 6 + 2 + 6 + 9 + 2 + 4 * 3 \
+    + 6 * DIV_INSTRUCTIONS
+# K5, a sample, counted from the arithmetic of csrc/raycast.cu (the chunk
+# bookkeeping of its ballots not counted): step distance 3, the two
+# coordinates 2 each, each cell index a difference and a cast + a
+# division, the bounds test 4, the address 2, the load and its test 2,
+# loop and exit tests 4
+K5_INSTRUCTIONS = 3 + 2 * 2 + 2 * 2 + 4 + 2 + 2 + 4 + 2 * DIV_INSTRUCTIONS
+F2M_FRAME = N_FRAMES // 2     # phase 3's one-frame K1 shape: this frame ...
+F2M_MAX_ACTIVE = 2048         # ... into the volume of the frames before it
+MISSION_POSES = 8             # the mission's --perception-batch
 PAIR_RADIUS = 0.1             # refine_trajectory's widest ICP threshold
 
 
@@ -148,13 +178,102 @@ def kernel_ms(fn, reps: int, kernels):
         torch.cuda.synchronize()
     names = (kernels,) if isinstance(kernels, str) else kernels
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA
-          and any(f"{k}(" in e.name for k in names)]
+          if e.device_type == DeviceType.CUDA and any(
+              f"{k}(" in e.name or f"{k}<" in e.name for k in names)]
     return sum(us) * 1e-3 / reps if us else None
 
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def instruction_floor_ms(instructions: float, work: float, dev) -> float:
+    """`instructions` lane instructions for each of `work` items over
+    every lane of the card (its SMs x 128) at the boost clock."""
+    import torch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return instructions * work / (sms * 128 * SM_CLOCK_HZ) * 1e3
+
+
+def ptxas_registers(kernel: str) -> dict:
+    """{entry: registers} of every compiled entry whose name holds
+    `kernel`, from the build's ptxas -v report (templates demangled by
+    cu++filt / c++filt where one is installed); {} when this process
+    found the library built."""
+    import re
+
+    from otslam_tpu_torch.kernels import _build
+    out, entry = {}, None
+    for line in _build.BUILD_LOG["output"].splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and kernel in entry:
+            out[entry] = int(m.group(1))
+            entry = None
+    return demangled(out)
+
+
+def demangled(entries: dict) -> dict:
+    """`entries` keyed by kernel name and template arguments (as
+    raycast_kernel<8>) instead of mangled names, where cu++filt or c++filt is
+    installed; as they are elsewhere."""
+    import re
+    import shutil
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    if not filt or not entries:
+        return entries
+    names = subprocess.run([filt], input="\n".join(entries), text=True,
+                           capture_output=True).stdout.split("\n")
+    out = {}
+    for name, value in zip(names, entries.values()):
+        name = re.sub(r"\((?:unsigned )?(?:int|bool|long)\)", "", name)
+        name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::", "",
+                      name)
+        out[name.split("(")[0]] = value
+    return out
+
+
+def sass_loops(kernel: str) -> dict:
+    """{entry: (instructions, slow-path calls)} of the innermost loop that
+    holds a MUFU (the per-pair or per-sample loop) of every compiled entry
+    whose name holds `kernel`, from cuobjdump -sass of the built library;
+    {} where cuobjdump is missing. The calls are the divisions' slow paths,
+    not taken for ordinary operands, each with its argument moves."""
+    import re
+    import shutil
+
+    from otslam_tpu_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool) or not _build.BUILD_LOG["path"]:
+        return {}
+    sass = subprocess.run([tool, "-sass", _build.BUILD_LOG["path"]],
+                          capture_output=True, text=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            if cur:
+                funcs[cur] = []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur:
+            funcs[cur].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for name, ins in funcs.items():
+        loops = []
+        for addr, text in ins:
+            m = re.search(r"BRA\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                if any("MUFU" in t for t in body):
+                    loops.append((len(body), sum("CALL" in t for t in body)))
+        if loops:
+            out[name] = min(loops)
+    return demangled(out)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -254,56 +373,115 @@ def phase_k2(meta, depths, exts, intr):
                            "library_ms": None, "mips_ms": mips_ms}
 
 
-def phase_k1(vol_cfg, band, vis, depths, colors, exts, intr):
+def k1_shape(label, base, ids, ptr, frames, depths, colors, exts, intr,
+             reps=5):
+    """K1 at one shape: the work list (ids, ptr, frames) fused into copies
+    of the volume `base` by the kernel and by its plain version, which must
+    agree bit for bit (tsdf, weight, colour); then its times, each call on a
+    fresh copy of `base`, and its bound. The log adds the instruction floor
+    and the time of pack_rgb, the colour pass before each launch."""
+    import copy
+
     import torch
 
     from otslam_tpu_torch.kernels import tsdf_cuda as tc
-    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume, pack_rgb
-    dev = depths.device
-    ka = make_block_volume(vol_cfg, dev)
-    pa = make_block_volume(vol_cfg, dev)
-    nb = ka.num_blocks
-    _, active = tc.created_and_active(band, vis, ka.created[:nb])
-    ids, ptr, frames = tc.active_worklist(active)
+    from otslam_tpu_torch.kernels.tsdf_block import pack_rgb
+    ka, pa, ref = (copy.deepcopy(base) for _ in range(3))
     cpk = pack_rgb(colors)
-    tc.fuse_blocks(ka, ids, ptr, frames, depths, cpk, exts, intr)
-    tc.fuse_blocks_torch(pa, ids, ptr, frames, depths, cpk, exts, intr)
-    torch.cuda.synchronize()
-    w_eq = bool(torch.equal(ka.weight, pa.weight))
-    check(w_eq, "K1 weights differ from the plain version: "
-          f"{int((ka.weight != pa.weight).sum())} voxels")
-    t_err = float((ka.tsdf - pa.tsdf).abs().max())
-    c_err = float((ka.color - pa.color).abs().max())
-    check(t_err <= 1e-5, f"K1 tsdf error {t_err} > 1e-5")
-    check(c_err <= 1e-3, f"K1 colour error {c_err} > 1e-3")
-    observed = int((pa.weight > 0).sum())
 
     def reset():
         for v in (ka, pa):
-            v.tsdf.zero_()
-            v.weight.zero_()
-            v.color.zero_()
-    ms = cuda_ms(lambda: tc.fuse_blocks(ka, ids, ptr, frames, depths, cpk,
-                                        exts, intr), 5, setup=reset)
+            v.tsdf.copy_(base.tsdf)
+            v.weight.copy_(base.weight)
+            v.color.copy_(base.color)
+
+    def fuse():
+        tc.fuse_blocks(ka, ids, ptr, frames, depths, cpk, exts, intr)
+
+    tc.fuse_blocks_torch(ref, ids, ptr, frames, depths, cpk, exts, intr)
+    fuse()
+    torch.cuda.synchronize()
+    diff = {k: int((getattr(ka, k) != getattr(ref, k)).sum())
+            for k in ("tsdf", "weight", "color")}
+    check(not any(diff.values()), f"K1 differs from its plain version at "
+          f"{label} (voxels per field {diff})")
+    observed = int((ref.weight > 0).sum())
+    del ref
+    ms = cuda_ms(fuse, reps, setup=reset)
     plain_ms = cuda_ms(lambda: tc.fuse_blocks_torch(
         pa, ids, ptr, frames, depths, cpk, exts, intr), 3, setup=reset)
-    dev_ms = kernel_ms(lambda: (reset(), tc.fuse_blocks(
-        ka, ids, ptr, frames, depths, cpk, exts, intr)), 5, "fuse_kernel")
+    dev_ms = kernel_ms(lambda: (reset(), fuse()), reps, "fuse_kernel")
+    pack_ms = cuda_ms(lambda: pack_rgb(colors), reps)
     # the listed blocks' 5 floats a voxel read and written once, the frames'
-    # depth and packed colour read once; about 55 f32 operations a
-    # (voxel, frame) pair (projection, rounding, sdf, four running means)
+    # depth and packed colour read once; about 55 f32 operations a (voxel,
+    # frame) pair (projection, rounding, sdf, four running means)
     pairs = frames.shape[0]
-    b = bound(ids.shape[0] * 512 * 5 * 4 * 2 + depths.numel() * 4
-              + cpk.numel() * 4 + exts.numel() * 4
-              + (ids.numel() + ptr.numel() + pairs) * 4,
+    b = bound(ids.shape[0] * 512 * 5 * 4 * 2 + depths.numel() * 8
+              + exts.numel() * 4 + (ids.numel() + ptr.numel() + pairs) * 4,
               55.0 * pairs * 512)
-    log(f"K1 fuse: {ids.shape[0]} blocks, {pairs} (block, frame) "
-        f"pairs, observed voxels {observed}, weights "
-        f"equal, tsdf err {t_err:.3g}, colour err {c_err:.3g}, kernel "
+    floor = instruction_floor_ms(K1_INSTRUCTIONS, pairs * 512.0,
+                                 depths.device)
+    log(f"  {label}: {ids.shape[0]} blocks, {pairs} (block, frame) pairs, "
+        f"observed voxels {observed}, tsdf, weight and colour equal; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, kernel alone "
-        f"{fmt_ms(dev_ms)}, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"max_abs_err": max(t_err, c_err), "ms": ms, "kernel_ms": dev_ms,
-            "plain_ms": plain_ms, **b, "library_ms": None}
+        f"{fmt_ms(dev_ms)} (V={tc.VOXELS_PER_THREAD}), bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}), instruction floor at "
+        f"{K1_INSTRUCTIONS} a voxel pair {floor:.4f} ms; pack_rgb "
+        f"{pack_ms:.4f} ms")
+    return {"shape": label, "max_abs_err": 0.0, "ms": ms,
+            "kernel_ms": dev_ms, "plain_ms": plain_ms, **b,
+            "library_ms": None, "blocks": int(ids.shape[0]),
+            "pairs": int(pairs)}
+
+
+def f2m_volume(vol_cfg, depths, colors, exts, intr):
+    """The f2m shape's volume: frames 0 .. F2M_FRAME - 1 fused one at a
+    time with max_active = F2M_MAX_ACTIVE, as refine_trajectory_f2m fuses
+    each tracked frame (here at the capture's true poses)."""
+    from otslam_tpu_torch.kernels.tsdf_block import (integrate_frames_sparse,
+                                                     make_block_volume)
+    vol = make_block_volume(vol_cfg, depths.device)
+    for i in range(F2M_FRAME):
+        integrate_frames_sparse(vol, depths[i:i + 1], colors[i:i + 1],
+                                exts[i:i + 1], intr,
+                                max_active=F2M_MAX_ACTIVE)
+    return vol
+
+
+def phase_k1(vol_cfg, band, vis, depths, colors, exts, intr):
+    """K1 at the paths' two shapes: the reconstruction's 64-frame batch into
+    an empty volume, and f2m's one frame into the volume of the frames
+    before it, capped at max_active blocks as integrate_frames_cuda caps
+    it."""
+    import torch
+
+    from otslam_tpu_torch.kernels import tsdf_cuda as tc
+    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
+    empty = make_block_volume(vol_cfg, depths.device)
+    nb = empty.num_blocks
+    _, active = tc.created_and_active(band, vis, empty.created[:nb])
+    shapes = [k1_shape(f"reconstruct {N_FRAMES} frames", empty,
+                       *tc.active_worklist(active), depths, colors, exts,
+                       intr)]
+    del empty, active
+    f = slice(F2M_FRAME, F2M_FRAME + 1)
+    vol = f2m_volume(vol_cfg, depths, colors, exts, intr)
+    band1, vis1 = tc.classify_blocks(vol.meta, depths[f], exts[f], intr)
+    _, active = tc.created_and_active(band1, vis1, vol.created[:nb])
+    capped = active & (torch.cumsum(active, dim=1) <= F2M_MAX_ACTIVE)
+    log(f"  f2m frame {F2M_FRAME}: {int(active.sum())} active blocks, "
+        f"{int(capped.sum())} after the max_active = {F2M_MAX_ACTIVE} cap, "
+        f"{int(vol.created.sum())} blocks created before it")
+    shapes.append(k1_shape(f"f2m one frame, max_active {F2M_MAX_ACTIVE}",
+                           vol, *tc.active_worklist(capped), depths[f],
+                           colors[f], exts[f], intr, reps=20))
+    regs = ptxas_registers("fuse_kernel")
+    loops = sass_loops("fuse_kernel")
+    log(f"K1 fuse: bit-identical to its plain version at both shapes; "
+        f"registers {regs}; SASS frame loop (instructions, slow-path "
+        f"calls) {loops}")
+    return {**shapes[0], "registers": regs, "sass_loop": loops,
+            "shapes": shapes}
 
 
 def nn_record(label, kernel, plain, names, pairs, nbytes, instructions,
@@ -675,17 +853,19 @@ def phase_k5(dev):
     import torch
 
     from otslam_tpu_torch.config import LidarConfig
-    from otslam_tpu_torch.kernels import raycast
+    from otslam_tpu_torch.kernels import nn, raycast
     from otslam_tpu_torch.mapping.virtual_scan import VirtualScanner
     from otslam_tpu_torch.sim.world import cardboard_room, full_room
     lidar = LidarConfig()
     out = {}
-    for name, scene in (("cardboard", cardboard_room()),
-                        ("full_room", full_room())):
+    for name, scene, n_poses in (
+            ("cardboard", cardboard_room(), RAY_POSES),
+            ("full_room", full_room(), RAY_POSES),
+            ("mission batch", cardboard_room(), MISSION_POSES)):
         vs = VirtualScanner(lidar, device=dev)
         vs.set_map(scene.occupancy_grid(0.05))
         g = vs._map
-        poses = torch.as_tensor(ray_poses(scene, RAY_POSES, 7), device=dev)
+        poses = torch.as_tensor(ray_poses(scene, n_poses, 7), device=dev)
         steps = raycast.num_steps_for(lidar.range_max, g.resolution)
         cos_a, sin_a = raycast.beam_trig(poses[:, 2], vs.angles())
         xy = poses[:, :2].contiguous()
@@ -706,6 +886,14 @@ def phase_k5(dev):
               f"{int(((fs != ps) | (fo != po)).sum())} beams")
         check(bool(torch.equal(ranges, plain)),
               f"K5 ranges differ from the plain version on {name}")
+        by_lanes = {}
+        for lanes in raycast.LANE_CHOICES:
+            ls, lo = raycast.ray_keys(*args, lanes=lanes)
+            check(bool(torch.equal(ls, ps)) and bool(torch.equal(lo, po)),
+                  f"K5 at L={lanes} differs from the plain version on {name}")
+            by_lanes[f"L={lanes}"] = kernel_ms(
+                lambda: raycast.ray_keys(*args, lanes=lanes), 20,
+                "raycast_kernel")
         ms = cuda_ms(lambda: raycast.ray_keys(*args), 20)
         plain_ms = cuda_ms(lambda: raycast.ray_keys_torch(*args), 5)
         dev_ms = kernel_ms(lambda: raycast.ray_keys(*args), 20,
@@ -719,16 +907,28 @@ def phase_k5(dev):
         # grid, cos/sin and poses read once, two keys written once
         b = bound(vs.grid.numel() + kb * 8 + xy.numel() * 4 + kb * 8,
                   12.0 * samples)
-        log(f"K5 raycast {name}: map {tuple(vs.grid.shape)}, {RAY_POSES} "
+        floor = instruction_floor_ms(K5_INSTRUCTIONS, samples, dev)
+        log(f"K5 raycast {name}: map {tuple(vs.grid.shape)}, {n_poses} "
             f"poses x {lidar.num_beams} beams x {steps} steps, hit beams "
             f"{hits} of {kb}, keys and ranges identical to the plain "
             f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, kernel "
             f"alone {fmt_ms(dev_ms)}, samples walked {samples:.0f} "
             f"({samples / (ms * 1e-3):.4g} samples/s), bound "
-            f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
-        out[name] = {"max_abs_err": 0.0, "ms": ms, "kernel_ms": dev_ms,
-                     "plain_ms": plain_ms, **b, "library_ms": None}
-    return out
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']}), instruction floor "
+            f"at {K5_INSTRUCTIONS} a sample {floor:.6f} ms")
+        lanes = raycast.lanes_for(fs.numel(), nn.sm_count(dev))
+        log(f"  lanes a ray, kernel alone (L={lanes} taken): "
+            + ", ".join(f"{k} {fmt_ms(t)}" for k, t in by_lanes.items()))
+        out[name] = {"shape": f"{name} {n_poses} poses", "max_abs_err": 0.0,
+                     "ms": ms, "kernel_ms": dev_ms, "plain_ms": plain_ms,
+                     **b, "library_ms": None, "samples": samples,
+                     "kernel_ms_by_lanes": by_lanes}
+    regs = ptxas_registers("raycast_kernel")
+    loops = sass_loops("raycast_kernel")
+    log(f"K5 raycast: registers {regs}; SASS chunk loop (instructions, "
+        f"slow-path calls) {loops}")
+    return {**out["cardboard"], "registers": regs, "sass_loop": loops,
+            "full_room": out["full_room"], "shapes": list(out.values())}
 
 
 def phase_mission(dev, workdir: str):
@@ -920,8 +1120,7 @@ def main() -> int:
         {"name": "K5 ray cast", "route": "cuda",
          "source": "otslam_tpu_torch/csrc/raycast.cu",
          "replaces": "otslam_tpu/kernels/raycast.py:113",
-         **counts("ray_keys"), **k5["cardboard"],
-         "full_room": k5["full_room"]},
+         **counts("ray_keys"), **k5},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -62,7 +62,9 @@ SIGNATURES = {
                          _I, _I, _I, _P, _P, _P, _P],   # n mp S bd bi parts
                                                         # stream
     "otslam_raycast": [_P, _I, _I, _P, _P, _P, _I, _I,  # grid H W cos sin xy B KB
-                       _I, _F, _F, _F, _P, _P, _P],     # S res ox oy fs fo stream
+                       _I, _F, _F, _F,                  # S res ox oy
+                       _I, _I, _I,                      # lanes blocks threads
+                       _P, _P, _P],                     # fs fo stream
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -10,9 +10,12 @@ whose value is 100 (occupied), +inf if the ray leaves the map or exceeds
 `ray_keys` computes, per beam, the first-stop and first-occupied step keys:
 kernel K5 (csrc/raycast.cu) on CUDA tensors, its plain version
 `ray_keys_torch` (all beams x all steps, a gather, a min over step keys) on
-CPU tensors. `raycast_grid` is the plain path end to end and
-`raycast_grid_fast` the routed one; both take one pose or a batch of K
-poses, so a perception batch casts all its virtual scans in one launch.
+CPU tensors. K5 gives each ray a group of `lanes` lanes of a warp that
+walks `lanes` steps at once; `lanes_for` picks the count for the card and
+`ray_launch` gives the launch shape. `raycast_grid` is the plain path end
+to end and `raycast_grid_fast` the routed one; both take one pose or a
+batch of K poses, so a perception batch casts all its virtual scans in
+one launch.
 
 Not ported, because each exists only for Mosaic and the TPU's VMEM: the
 prepared transposed bf16 grid planes (prepare_raycast_grid, gt_pad), the
@@ -26,6 +29,34 @@ from __future__ import annotations
 import torch
 
 from otslam_tpu_torch.kernels import _build
+from otslam_tpu_torch.kernels.nn import sm_count
+
+LANE_CHOICES = (8, 16, 32)   # lanes a ray that K5 is compiled for
+RAY_THREADS = 128            # threads a block
+SM_THREADS = 2048            # threads an SM holds (Hopper)
+
+
+def lanes_for(rays: int, sms: int) -> int:
+    """K5's lanes a ray: the fewest (8, 16 or 32) whose threads fill every
+    SM of the card at once, 32 when none does. Fewer lanes walk fewer steps
+    past a ray's stop; more cut the chain of rounds when there are too few
+    rays to fill the card (the mission's 8 poses: 32; 64 poses: 8)."""
+    for lanes in LANE_CHOICES:
+        if rays * lanes >= sms * SM_THREADS:
+            return lanes
+    return LANE_CHOICES[-1]
+
+
+def ray_launch(rays: int, lanes: int) -> tuple[int, int]:
+    """(blocks, threads) of a K5 launch over `rays` rays of `lanes` lanes
+    each; refuses a lane count K5 is not compiled for and a negative ray
+    count."""
+    if lanes not in LANE_CHOICES:
+        raise ValueError(f"lanes a ray must be one of {LANE_CHOICES}, got "
+                         f"{lanes}")
+    if rays < 0:
+        raise ValueError(f"ray count must be >= 0, got {rays}")
+    return -(-rays * lanes // RAY_THREADS), RAY_THREADS
 
 
 def num_steps_for(range_max: float, resolution: float) -> int:
@@ -88,10 +119,12 @@ def ray_keys_torch(grid: torch.Tensor, cos_a: torch.Tensor,
 
 def ray_keys(grid: torch.Tensor, cos_a: torch.Tensor, sin_a: torch.Tensor,
              pose_xy: torch.Tensor, resolution: float, origin_x: float,
-             origin_y: float, num_steps: int):
+             origin_y: float, num_steps: int, *, lanes: int | None = None):
     """(first_stop, first_occ) int32 (K*B,) step keys: kernel K5 on CUDA
     tensors, the plain version on CPU tensors. Identical results either
-    way. grid (H, W) int8; cos_a, sin_a (K, B) f32; pose_xy (K, 2) f32."""
+    way. grid (H, W) int8; cos_a, sin_a (K, B) f32; pose_xy (K, 2) f32.
+    `lanes` (8, 16, 32) lanes walk a ray, by default `lanes_for` the ray
+    count on this card."""
     if grid.device.type == "cpu":
         return ray_keys_torch(grid, cos_a, sin_a, pose_xy, resolution,
                               origin_x, origin_y, num_steps)
@@ -110,6 +143,9 @@ def ray_keys(grid: torch.Tensor, cos_a: torch.Tensor, sin_a: torch.Tensor,
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
     H, W = grid.shape
     K, B = cos_a.shape
+    if lanes is None:
+        lanes = lanes_for(K * B, sm_count(grid.device))
+    blocks, threads = ray_launch(K * B, lanes)
     first_stop = torch.empty(K * B, dtype=torch.int32, device=grid.device)
     first_occ = torch.empty_like(first_stop)
     _build.check_operands(grid, cos_a, sin_a, pose_xy, first_stop, first_occ)
@@ -117,6 +153,7 @@ def ray_keys(grid: torch.Tensor, cos_a: torch.Tensor, sin_a: torch.Tensor,
     code = lib.otslam_raycast(grid.data_ptr(), H, W, cos_a.data_ptr(),
                               sin_a.data_ptr(), pose_xy.data_ptr(), B, K * B,
                               num_steps, resolution, origin_x, origin_y,
+                              lanes, blocks, threads,
                               first_stop.data_ptr(), first_occ.data_ptr(),
                               _build.stream_ptr(grid.device))
     _build.check(code, "otslam_raycast")

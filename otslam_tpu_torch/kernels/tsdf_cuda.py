@@ -12,7 +12,8 @@ Counterpart of otslam_tpu/kernels/tsdf_pallas.py. The schedule:
    ids (blocks active in any frame, ascending), ptr (A+1,), frames (nnz,)
    ascending per block;
 4. fuse (`fuse_blocks`, kernel K1, csrc/tsdf_fuse.cu): per listed block,
-   the running weighted mean over its frames in order, written once.
+   the running weighted mean over its frames in order, written once;
+   `fuse_launch` gives its launch shape.
 
 Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises. `launches` on each
@@ -126,6 +127,19 @@ def active_worklist(active: torch.Tensor):
 # K1: fusion
 # ---------------------------------------------------------------------------
 
+VOXELS_PER_THREAD = 2        # K1's voxels a thread (csrc/tsdf_fuse.cu's V)
+MAX_GRID_BLOCKS = 2**31 - 1  # a CUDA grid's x dimension
+
+
+def fuse_launch(n_ids: int):
+    """(blocks, threads) of a K1 launch: one block of 512 / V threads per
+    listed block. Refuses a count a grid cannot hold."""
+    if not 0 <= n_ids <= MAX_GRID_BLOCKS:
+        raise ValueError(f"listed block count must be in [0, "
+                         f"{MAX_GRID_BLOCKS}], got {n_ids}")
+    return n_ids, BLOCK_VOXELS // VOXELS_PER_THREAD
+
+
 def fuse_blocks_torch(vol: BlockTSDFVolume, ids, ptr, frames, depths,
                       cpacked, extrinsics, intr: PinholeIntrinsics) -> None:
     """Plain version of K1: the block-sparse running mean, in place.
@@ -184,10 +198,13 @@ def fuse_blocks(vol: BlockTSDFVolume, ids, ptr, frames, depths, cpacked,
     if (vol.tsdf.shape[1] != BLOCK_VOXELS
             or vol.color.shape[1] != 3 * BLOCK_VOXELS):
         raise ValueError("block volume rows must be (NB+1, 512)/(NB+1, 1536)")
+    if ext.data_ptr() % 16:
+        raise ValueError("extrinsic rows must be 16-byte aligned")
+    n_ids, _ = fuse_launch(ids.shape[0])
     lib = _build.load()
     code = lib.otslam_fuse(
         vol.tsdf.data_ptr(), vol.weight.data_ptr(), vol.color.data_ptr(),
-        ids.data_ptr(), ptr.data_ptr(), frames.data_ptr(), ids.shape[0],
+        ids.data_ptr(), ptr.data_ptr(), frames.data_ptr(), n_ids,
         depths.data_ptr(), cpacked.data_ptr(), ext.data_ptr(), H, W, gby,
         gbz, _f32(origin[0]), _f32(origin[1]), _f32(origin[2]), _f32(vs),
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),

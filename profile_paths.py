@@ -14,7 +14,9 @@ a run under torch.profiler (CPU and CUDA activities) and cProfile. For the
 profiled run it prints the wall seconds, the device busy time (the sum of
 its CUDA kernel and copy durations) and its share of the wall, the number
 of kernel launches, each of the repo's kernels with its launches and
-device milliseconds at the path's own shapes, the top device items by total
+device milliseconds at the path's own shapes (their sum, mean, spread and
+the three longest launches, which tell a path's shapes apart), the top
+device items by total
 time, and the host's cumulative seconds in the path's stages. Prints the
 card's name and power limit first (nvidia-smi). Needs a CUDA device.
 """
@@ -88,10 +90,15 @@ def profile_path(name: str, run) -> None:
           f"launches {launches}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for k in KERNELS:
-        n = sum(v[0] for key, v in ranked if f"{k}(" in key)
-        ms = sum(v[1] for key, v in ranked if f"{k}(" in key)
+        each = sorted(e.time_range.elapsed_us() * 1e-3 for e in events
+                      if e.device_type == DeviceType.CUDA
+                      and (f"{k}(" in e.name or f"{k}<" in e.name))
+        n, ms = len(each), sum(each)
         print(f"  kernel {k}: {n} launches, {ms:.4f} ms"
-              + (f", {ms / n:.4f} ms each" if n else ""))
+              + (f", {ms / n:.4f} ms each (min {each[0]:.4f}, median "
+                 f"{each[n // 2]:.4f}, max {each[-1]:.4f}; the "
+                 f"{min(n, 3)} longest {sum(each[-3:]):.4f} ms)"
+                 if n else ""))
     print("  top device items (total ms, count):")
     for key, (n, ms) in ranked[:12]:
         print(f"  {ms:10.4f} ms {n:7d}x  {key[:90]}")

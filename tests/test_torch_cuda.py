@@ -10,6 +10,8 @@ it without conftests:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -62,34 +64,90 @@ def test_classify_kernel_matches_plain(dev, frames):
     assert torch.equal(vis_k, vis_p)
 
 
-def test_fuse_kernel_matches_plain(dev, frames):
-    depths, colors, exts = (x.to(dev) for x in frames)
-    kv = ttb.make_block_volume(VOL, dev)
-    pv = ttb.make_block_volume(VOL, dev)
-    band, vis = tc.classify_blocks_torch(kv.meta, depths, exts, INTR)
-    _, active = tc.created_and_active(band, vis, kv.created[:-1])
-    ids, ptr, frames_ = tc.active_worklist(active)
+def same_volume(a, b):
+    return (torch.equal(a.tsdf, b.tsdf) and torch.equal(a.weight, b.weight)
+            and torch.equal(a.color, b.color))
+
+
+def fuse_both(base, ids, ptr, frames_, depths, colors, exts):
+    """(kernel, plain) volumes: the work list fused into copies of `base`
+    by K1 and by its plain version."""
+    kv, pv = copy.deepcopy(base), copy.deepcopy(base)
+    before = tc.fuse_blocks.launches
     cpk = ttb.pack_rgb(colors)
     tc.fuse_blocks(kv, ids, ptr, frames_, depths, cpk, exts, INTR)
+    assert tc.fuse_blocks.launches == before + 1
     tc.fuse_blocks_torch(pv, ids, ptr, frames_, depths, cpk, exts, INTR)
-    assert pv.weight.sum() > 0 and torch.equal(kv.weight, pv.weight)
-    assert float((kv.tsdf - pv.tsdf).abs().max()) <= 1e-5
-    assert float((kv.color - pv.color).abs().max()) <= 1e-3
+    return kv, pv
+
+
+def test_fuse_kernel_matches_plain(dev, frames):
+    """K1 bit-identical to its plain version: tsdf, weight and colour."""
+    depths, colors, exts = (x.to(dev) for x in frames)
+    base = ttb.make_block_volume(VOL, dev)
+    band, vis = tc.classify_blocks_torch(base.meta, depths, exts, INTR)
+    _, active = tc.created_and_active(band, vis, base.created[:-1])
+    ids, ptr, frames_ = tc.active_worklist(active)
+    kv, pv = fuse_both(base, ids, ptr, frames_, depths, colors, exts)
+    assert pv.weight.sum() > 0 and same_volume(kv, pv)
     with pytest.raises(ValueError, match="out of range"):
-        tc.fuse_blocks(kv, ids + kv.num_blocks, ptr, frames_, depths, cpk,
-                       exts, INTR)
+        tc.fuse_blocks(kv, ids + kv.num_blocks, ptr, frames_, depths,
+                       ttb.pack_rgb(colors), exts, INTR)
+
+
+def test_fuse_kernel_one_frame_into_a_volume_with_max_active(dev, frames):
+    """The f2m shape: one frame fused into the volume of the frames before
+    it, its active blocks capped at max_active, as integrate_frames_cuda
+    caps them; bit-identical to the plain version."""
+    depths, colors, exts = (x.to(dev) for x in frames)
+    base = ttb.make_block_volume(VOL, dev)
+    for i in range(5):
+        ttb.integrate_frames_sparse(base, depths[i:i + 1], colors[i:i + 1],
+                                    exts[i:i + 1], INTR, max_active=200)
+    f = slice(5, 6)
+    band, vis = tc.classify_blocks(base.meta, depths[f], exts[f], INTR)
+    _, active = tc.created_and_active(band, vis, base.created[:-1])
+    cap = int(active.sum()) * 2 // 3
+    active &= torch.cumsum(active, dim=1) <= cap
+    ids, ptr, frames_ = tc.active_worklist(active)
+    assert ids.shape[0] == cap and base.weight.sum() > 0
+    kv, pv = fuse_both(base, ids, ptr, frames_, depths[f], colors[f],
+                       exts[f])
+    assert same_volume(kv, pv) and not same_volume(kv, base)
+
+
+@pytest.mark.parametrize("repeats", [1, 5])
+def test_fuse_kernel_blocks_in_every_frame(dev, frames, repeats):
+    """Blocks active in all 8 frames of the batch, and in all 40 of a batch
+    that repeats them (more frames than K1 stages at once): bit-identical
+    to the plain version."""
+    depths, colors, exts = (x.to(dev).repeat(repeats, *[1] * (x.dim() - 1))
+                            for x in frames)
+    base = ttb.make_block_volume(VOL, dev)
+    band, vis = tc.classify_blocks_torch(base.meta, depths, exts, INTR)
+    listed = vis.any(dim=0).nonzero()[:, 0][::7]
+    active = torch.zeros_like(vis)
+    active[:, listed] = True
+    ids, ptr, frames_ = tc.active_worklist(active)
+    assert torch.all(ptr[1:] - ptr[:-1] == 8 * repeats)
+    kv, pv = fuse_both(base, ids, ptr, frames_, depths, colors, exts)
+    assert pv.weight.sum() > 0 and same_volume(kv, pv)
 
 
 def test_fusion_on_the_card_matches_the_cpu_path(dev, frames):
-    """The whole schedule with both kernels equals the plain CPU path."""
-    gpu = ttb.integrate_frames_sparse(ttb.make_block_volume(VOL, dev),
-                                      *(x.to(dev) for x in frames), INTR)
-    cpu = ttb.integrate_frames_sparse(
-        ttb.make_block_volume(VOL, device="cpu"), *frames, INTR)
-    assert torch.equal(gpu.created.cpu(), cpu.created)
-    assert torch.equal(gpu.weight.cpu(), cpu.weight)
-    assert float((gpu.tsdf.cpu() - cpu.tsdf).abs().max()) <= 1e-5
-    assert float((gpu.color.cpu() - cpu.color).abs().max()) <= 1e-3
+    """The whole schedule with both kernels equals the plain CPU path bit
+    for bit, uncapped and with max_active."""
+    for cap in (None, 150):
+        gpu = ttb.integrate_frames_sparse(ttb.make_block_volume(VOL, dev),
+                                          *(x.to(dev) for x in frames), INTR,
+                                          max_active=cap)
+        cpu = ttb.integrate_frames_sparse(
+            ttb.make_block_volume(VOL, device="cpu"), *frames, INTR,
+            max_active=cap)
+        assert torch.equal(gpu.created.cpu(), cpu.created)
+        assert torch.equal(gpu.weight.cpu(), cpu.weight)
+        assert torch.equal(gpu.tsdf.cpu(), cpu.tsdf)
+        assert torch.equal(gpu.color.cpu(), cpu.color)
 
 
 def test_nn_kernel_matches_plain(dev):
@@ -258,11 +316,14 @@ def test_wrappers_refuse_mixed_devices(dev, frames):
         tc.classify_blocks(meta, depths.to(dev), exts, INTR)
 
 
+RAY_VARIANTS = [{"lanes": n} for n in raycast.LANE_CHOICES]
+
+
 @pytest.mark.parametrize("beams, poses", [(360, 1), (1440, 8), (1000, 5)])
 def test_raycast_kernel_matches_plain(dev, beams, poses):
     """K5 against its plain version on random grids and poses (some off
-    the map), at a beam count that is no multiple of 32: bit-identical
-    step keys."""
+    the map), at a beam count that is no multiple of 32 and at every lane
+    count a ray: bit-identical step keys."""
     rng = np.random.default_rng(beams)
     grid = ((rng.random((150, 190)) < 0.02) * 100).astype(np.int8)
     angles = torch.as_tensor(np.sort(rng.uniform(0, 2 * np.pi, beams))
@@ -274,11 +335,12 @@ def test_raycast_kernel_matches_plain(dev, beams, poses):
                                                      device=dev), angles)
     xy = torch.as_tensor(pose[:, :2], device=dev).contiguous()
     args = (0.05, -0.7, -0.4, 160)
-    before = raycast.ray_keys.launches
-    fs, fo = raycast.ray_keys(grid_t, cos_a, sin_a, xy, *args)
     ps, po = raycast.ray_keys_torch(grid_t, cos_a, sin_a, xy, *args)
-    assert raycast.ray_keys.launches == before + 1
-    assert torch.equal(fs, ps) and torch.equal(fo, po)
+    for variant in RAY_VARIANTS:
+        before = raycast.ray_keys.launches
+        fs, fo = raycast.ray_keys(grid_t, cos_a, sin_a, xy, *args, **variant)
+        assert raycast.ray_keys.launches == before + 1
+        assert torch.equal(fs, ps) and torch.equal(fo, po), variant
     assert bool((fs < 160).any()) and bool((fo < 160).any())
     ranges = raycast.raycast_grid_fast(grid_t, 0.05, -0.7, -0.4,
                                        *torch.as_tensor(pose.T, device=dev),
@@ -287,6 +349,48 @@ def test_raycast_kernel_matches_plain(dev, beams, poses):
                                  *torch.as_tensor(pose.T, device=dev),
                                  angles, 8.0)
     assert ranges.shape == (poses, beams) and torch.equal(ranges, plain)
+
+
+@pytest.mark.parametrize("steps", [1, 37, 160])
+def test_raycast_kernel_step_counts_and_chunk_edges(dev, steps):
+    """K5 at S = 1 and at an S that is no multiple of any lane count, on
+    rays that start off the map and enter it at every offset within a
+    chunk (entry steps 0-40), and on rays that enter and leave a 3 x 3
+    grid within one chunk, with and without an occupied cell in their
+    way: keys bit-identical to the plain version at every lane count."""
+    res, ox, oy = 0.05, -0.7, -0.4
+    big = np.zeros((150, 190), np.int8)
+    big[75, 120] = 100
+    tiny = np.zeros((3, 3), np.int8)
+    cases = []
+    # rays along +x entering the big grid from the left after e + 0.25
+    # cells; half of them hit the occupied cell in row 75
+    e = np.arange(41, dtype=np.float32)
+    rows = np.where(e % 2 == 0, 75.5, 40.5).astype(np.float32)
+    cases.append((big, np.stack([ox - res * (e + 0.25),
+                                 oy + res * rows], 1), 0.0))
+    # rays crossing the 3 x 3 grid (origin 0, 0) in a few steps
+    yy = np.array([0.025, 0.075, 0.125, 0.175, -0.02], np.float32)
+    cases.append((tiny, np.stack([np.full(5, -0.2, np.float32), yy], 1),
+                  0.0))
+    tiny_occ = tiny.copy()
+    tiny_occ[1, 2] = 100
+    cases.append((tiny_occ, np.stack([np.full(5, -0.2, np.float32), yy], 1),
+                  0.0))
+    for grid, xy, yaw in cases:
+        origin = (ox, oy) if grid is big else (0.0, 0.0)
+        angles = torch.linspace(-0.02, 0.02, 24, device=dev)
+        grid_t = torch.as_tensor(grid, device=dev)
+        xy_t = torch.as_tensor(xy, device=dev).contiguous()
+        cos_a, sin_a = raycast.beam_trig(
+            torch.full((len(xy),), yaw, device=dev), angles)
+        args = (grid_t, cos_a.contiguous(), sin_a.contiguous(), xy_t, res,
+                *origin, steps)
+        ps, po = raycast.ray_keys_torch(*args)
+        for variant in RAY_VARIANTS:
+            fs, fo = raycast.ray_keys(*args, **variant)
+            assert torch.equal(fs, ps) and torch.equal(fo, po), variant
+    assert steps == 1 or bool((po < steps).any())
 
 
 def test_raycast_refuses_bad_operands(dev):
@@ -300,6 +404,8 @@ def test_raycast_refuses_bad_operands(dev):
                          0, 5)
     with pytest.raises(ValueError, match="one CUDA device"):
         raycast.ray_keys(grid, cos_a, cos_a, xy.cpu(), 0.1, 0, 0, 5)
+    with pytest.raises(ValueError, match="lanes a ray"):
+        raycast.ray_keys(grid, cos_a, cos_a, xy, 0.1, 0, 0, 5, lanes=4)
 
 
 def test_render_lidar_path_rows_equal_render_lidar_on_the_card(dev):

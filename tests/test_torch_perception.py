@@ -416,3 +416,98 @@ def test_render_lidar_path_rows_equal_render_lidar():
     np.testing.assert_array_equal(np.isfinite(path.numpy()), fin)
     np.testing.assert_allclose(path.numpy()[fin], jpath[fin], rtol=0,
                                atol=1e-5)
+
+
+def step_masks(grid, cos_a, sin_a, pose_xy, ox, oy, num_steps):
+    """(oob, occ) bool (K*B, S): every step of every ray, with the
+    arithmetic of ray_keys_torch."""
+    H, W = grid.shape
+    res, ox, oy = (torch.tensor(x, dtype=torch.float32) for x in (RES, ox,
+                                                                    oy))
+    d = (torch.arange(num_steps, dtype=torch.float32) + 1.0) * res
+    B = cos_a.shape[-1]
+    px = pose_xy[:, 0].repeat_interleave(B)[:, None]
+    py = pose_xy[:, 1].repeat_interleave(B)[:, None]
+    gx = ((px + d * cos_a.reshape(-1, 1) - ox) / res).to(torch.int32)
+    gy = ((py + d * sin_a.reshape(-1, 1) - oy) / res).to(torch.int32)
+    oob = (gx < 0) | (gx >= W) | (gy < 0) | (gy >= H)
+    cell = grid[gy.clamp(0, H - 1).long(), gx.clamp(0, W - 1).long()]
+    return oob.numpy(), ((cell == 100) & ~oob).numpy()
+
+
+def chunked_keys(oob, occ, lanes):
+    """K5's walk in plain numpy: `lanes` steps a chunk; first_stop from the
+    chunk's lowest oob-or-occupied step, first_occ from its lowest
+    occupied one, which ends the ray; an oob last step ends it once any
+    step so far was in the grid."""
+    n, steps = oob.shape
+    fs = np.full(n, steps)
+    fo = np.full(n, steps)
+    for i in range(n):
+        was_in = False
+        for base in range(0, steps, lanes):
+            o, c = oob[i, base:base + lanes], occ[i, base:base + lanes]
+            stop = o | c
+            if fs[i] == steps and stop.any():
+                fs[i] = base + int(np.argmax(stop))
+            if c.any():
+                fo[i] = base + int(np.argmax(c))
+                break
+            was_in = was_in or not o.all()
+            if was_in and o[-1]:
+                break
+    return fs, fo
+
+
+@pytest.mark.parametrize("steps", [1, 37, STEPS])
+def test_chunked_walk_gives_the_plain_keys(room_map, steps):
+    """K5's chunk rule (csrc/raycast.cu), mirrored in numpy over the plain
+    version's per-step masks, gives its keys for every lane count: on
+    poses inside the room, off the map (rays that never enter, and rays
+    that enter at every offset within a chunk) and near its edge."""
+    grid, ox, oy = room_map
+    H, W = grid.shape
+    rng = np.random.default_rng(steps)
+    poses = [(*rng.uniform([-4.5, -4.5], [4.5, 4.5]), 0.0) for _ in range(3)]
+    # left of the map, entering it after e + 0.25 cells along +x
+    poses += [(ox - RES * (e + 0.25), oy + RES * H / 2, 0.0)
+              for e in range(0, 41, 3)]
+    poses += [(-7.3, 0.41, 0.3), (ox + RES * 0.5, oy + RES * 0.5, 0.7)]
+    poses = np.asarray(poses, np.float32)
+    angles = t(np.linspace(-0.3, 0.3, 16, dtype=np.float32))
+    cos_a, sin_a = tray.beam_trig(t(poses[:, 2]), angles)
+    xy = t(poses[:, :2])
+    ps, po = tray.ray_keys_torch(t(grid), cos_a, sin_a, xy, RES, ox, oy,
+                                 steps)
+    oob, occ = step_masks(t(grid), cos_a, sin_a, xy, ox, oy, steps)
+    entered_mid_chunk = (oob[:, 0] & ~oob.all(axis=1)).sum()
+    assert steps == 1 or entered_mid_chunk > 100
+    for lanes in tray.LANE_CHOICES:
+        fs, fo = chunked_keys(oob, occ, lanes)
+        np.testing.assert_array_equal(fs, ps.numpy())
+        np.testing.assert_array_equal(fo, po.numpy())
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_ray_launch_shape(lanes):
+    """`lanes` lanes a ray in blocks of 128 threads: the mission's 8 x 1440
+    rays, 64 x 1440, a ragged count, none."""
+    for rays in (0, 8 * 1440, 64 * 1440, 1000):
+        blocks, threads = tray.ray_launch(rays, lanes)
+        assert threads == 128 and blocks == -(-rays * lanes // 128)
+
+
+@pytest.mark.parametrize("lanes, rays", [(4, 10), (12, 10), (64, 10),
+                                         (1, 10), (8, -1)])
+def test_ray_launch_refuses_bad_shapes(lanes, rays):
+    with pytest.raises(ValueError):
+        tray.ray_launch(rays, lanes)
+
+
+@pytest.mark.parametrize("poses, lanes", [(1, 32), (8, 32), (16, 16),
+                                          (32, 8), (64, 8)])
+def test_lanes_for_fills_a_132_sm_card(poses, lanes):
+    """The fewest lanes whose threads fill 132 SMs x 2048: 32 at the
+    mission's 8 poses x 1440 beams, 8 at a 64-pose transit batch."""
+    assert tray.lanes_for(poses * 1440, 132) == lanes
+    assert tray.lanes_for(0, 132) == 32

@@ -69,3 +69,55 @@ def test_dead_row_restored_and_cpu_never_launches():
     assert (tc.classify_blocks.launches, tc.fuse_blocks.launches) == launches
     assert vol.weight.sum() > 0
     assert float(vol.tsdf[-1].abs().sum()) == 0.0
+
+
+@pytest.fixture(scope="module")
+def small_capture():
+    return tuple(torch.from_numpy(a) for a in capture(3))
+
+
+def test_pack_rgb_is_the_little_endian_bytes_of_the_colour(small_capture):
+    """K1's colour plane: pack_rgb of float colours (clamped to [0, 255]
+    and truncated) and of bytes is the int32 whose little-endian bytes are
+    R, G, B, 0, the layout csrc/tsdf_fuse.cu unpacks."""
+    _, colors, _ = small_capture
+    noisy = colors * 1.7 - 40.0 + 0.49             # out of range, fractions
+    for c in (colors, noisy, colors.to(torch.uint8)):
+        rgb = torch.clamp(c.to(torch.float32), 0, 255).to(torch.uint8)
+        zero = torch.zeros(rgb.shape[:-1] + (1,), dtype=torch.uint8)
+        want = torch.cat([rgb, zero], dim=-1).view(torch.int32)[..., 0]
+        got = ttb.pack_rgb(c)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert (ttb.pack_rgb(noisy) != ttb.pack_rgb(colors)).any()
+
+
+def test_fuse_blocks_on_the_cpu_is_the_plain_version(small_capture):
+    """On CPU tensors fuse_blocks is fuse_blocks_torch and launches
+    nothing: the same volume, bit for bit."""
+    depths, colors, exts = small_capture
+    a = ttb.make_block_volume(VOL, device="cpu")
+    b = ttb.make_block_volume(VOL, device="cpu")
+    band, vis = tc.classify_blocks(a.meta, depths, exts, T_SMALL)
+    _, active = tc.created_and_active(band, vis, a.created[:-1])
+    ids, ptr, frames = tc.active_worklist(active)
+    cpk = ttb.pack_rgb(colors)
+    launches = tc.fuse_blocks.launches
+    tc.fuse_blocks(a, ids, ptr, frames, depths, cpk, exts, T_SMALL)
+    tc.fuse_blocks_torch(b, ids, ptr, frames, depths, cpk, exts, T_SMALL)
+    assert tc.fuse_blocks.launches == launches and b.weight.sum() > 0
+    for k in ("tsdf", "weight", "color"):
+        assert torch.equal(getattr(a, k), getattr(b, k))
+
+
+@pytest.mark.parametrize("n", [0, 2048, 6588])
+def test_fuse_launch_shape(n):
+    """One block of 512 / V = 256 threads per listed block (none, the f2m
+    launch's 2048 blocks, the reconstruction's 6588)."""
+    assert tc.VOXELS_PER_THREAD == 2
+    assert tc.fuse_launch(n) == (n, 256)
+
+
+@pytest.mark.parametrize("n", [-1, -6588, 2**31])
+def test_fuse_launch_refuses_bad_shapes(n):
+    with pytest.raises(ValueError, match="listed block count"):
+        tc.fuse_launch(n)
