@@ -3,17 +3,25 @@
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (non-zero exit) when it goes wrong:
+Exit code 0 when every phase passed; 1 when a check failed (its message on
+stderr, after `chip_smoke: FAILED:`); 2 when the run cannot start: no CUDA
+GPU, or no otslam_tpu_torch package beside the script. Only a run that
+passed prints results. Phases, each of which fails the run when it goes
+wrong:
 
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the CUDA kernels from otslam_tpu_torch/csrc/ with nvcc;
 3. each kernel against its plain PyTorch version at the main path's shapes
    (64 VGA frames, 1 cm voxels, a 256^3 volume = 32768 blocks, and
    100k x 50k points), with CUDA-event times for both:
-   K2 block classification (bit-identical), K1 block fusion (tsdf, weight
-   and colour bit-identical) at the reconstruction's 64-frame batch and at frame-to-model
-   tracking's one frame (frame 32 into the volume of frames 0-31, capped at
-   max_active = 2048 blocks), K3 nearest neighbour (d^2 and index
+   the fusion schedule's passes before K1 (the depth-mip pass's table and
+   bounds, K2 block classification, the colour pack; each with
+   torch.equal) at the reconstruction's 64-frame batch and at
+   frame-to-model tracking's one frame (frame 32), K1 block fusion (tsdf,
+   weight and colour bit-identical) at the reconstruction's 64-frame batch
+   and at frame-to-model tracking's one frame (frame 32 into the volume of
+   frames 0-31, capped at max_active = 2048 blocks), K3 nearest neighbour
+   (d^2 and index
    bit-identical) at the eval's 100k x 50k and 50k x 100k and at the
    localizer's 1440-beam scan against the cardboard room's 0.05 m grid
    cloud (the operands of the first K3 call of a real
@@ -22,8 +30,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    on the card, goes through reconstruct_frames (the body of
    reconstruct_object after dataset loading) with the default
    ReconstructionConfig and auto_volume_config, then write_ply -> read_ply
-   -> evaluate_map against the 50k-point scenario GT; every kernel must
-   have launched and the accuracy must be < 1 cm;
+   -> evaluate_map against the 50k-point scenario GT; every kernel of the
+   path (mips, K2, pack, K1, K3) must have launched and the accuracy must
+   be < 1 cm;
 5. K4 windowed nearest neighbour against its plain version (bit-identical
    d^2 and index on every row) and against K3 (identical on every row whose
    nearest neighbour lies within the radius, >= the radius elsewhere) at
@@ -34,8 +43,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    compounding odometry noise goes through reconstruct_frames with
    refine="icp" and refine="pgo", then write_ply -> read_ply ->
    evaluate_map(use_icp=True); then ScanLocalizer registers a 1440-beam
-   scan against the cardboard room's 0.05 m grid. K4 must have launched,
-   pgo must lower the drifted trajectory's translation RMSE, and the scan
+   scan against the cardboard room's 0.05 m grid. The fusion schedule's
+   four kernels, K3 and K4 must have launched, pgo must lower the drifted trajectory's translation RMSE, and the scan
    must localize to < 4 cm and < 0.02 rad;
 7. K5 ray casting against its plain version at the perception workload:
    1440 beams, range 10 m (200 steps), 64 poses in one call, on the
@@ -48,7 +57,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
    grid, cardboard scenario) with --removed --localizer
    --perception-batch 8 for 300 ticks, then reconstruct_all (auto origin)
    over the mission's dataset and evaluate_map of Object_0 against the
-   scenario GT. K5 must have launched, at least one stable object and 4
+   scenario GT. K5, K3 and the fusion schedule's four kernels must have
+   launched, at least one stable object and 4
    missions, the removed-object check visited, every cloud non-empty and
    finite, and Object_0's accuracy < 2 cm.
 
@@ -59,11 +69,13 @@ and `kernel_ms`, the kernel alone in a torch.profiler trace (K3/K4: the
 scan and, for a split launch, the merge). It carries its bound too: the
 larger of the bytes it must move over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s (the H100 SXM's published peaks), at this run's shapes and
-data; K1, K3, K4 and K5 also a `shapes` list with a record per shape (the
-log gives each shape's pairs or samples and the instruction floor of the
-kernel's unfused arithmetic beside it, K3/K4 their split S; K5's records
-hold the kernel alone at each lane count, K1's and K5's the registers
-ptxas reports). The line before the last two is
+data; every kernel also a `shapes` list with a record per shape (the log
+gives K1's, K3's, K4's and K5's pairs or samples and the instruction floor
+of the kernel's unfused arithmetic beside it, K3/K4 their split S; K5's
+records hold the kernel alone at each lane count; K1's, K5's and the K2
+schedule's records the registers ptxas reports). K2's `ms` times its
+wrapper with the mip pass in it, its `kernel_ms` the classify kernel
+alone. The line before the last two is
 the kernels' JSON record, then the nvidia-smi name/power line; the last
 line is {"ok": true, "device": {...}}. JAX and otslam_tpu are never
 imported. profile_paths.py drives phases 4, 6 and 8 under a profiler.
@@ -334,43 +346,100 @@ def render_capture(dev):
     return batch, intr, scene
 
 
-def phase_k2(meta, depths, exts, intr):
+def pass_record(label, kernel, plain, names, nbytes, ops, reps):
+    """Times of one call of a K2-schedule kernel at one shape: events
+    around the wrapper, the kernels `names` alone from a trace, the plain
+    version, and the bound of `nbytes` and `ops` f32 operations."""
+    return {"shape": label, "max_abs_err": 0.0, "ms": cuda_ms(kernel, reps),
+            "kernel_ms": kernel_ms(kernel, reps, names),
+            "plain_ms": cuda_ms(plain, reps), **bound(nbytes, ops),
+            "library_ms": None}
+
+
+def phase_k2(meta, depths, colors, exts, intr):
+    """The fusion schedule's passes before K1, each against its plain
+    version with torch.equal at the reconstruction's 64-frame batch and at
+    f2m's one frame (F2M_FRAME): the depth-mip pass (table and global
+    bounds), K2's classification (torch.bool band and visible) and the
+    colour pack. Returns the 64-frame (band, visible) and the three
+    records (the 64-frame shape's times on top, both shapes in
+    `shapes`)."""
     import torch
 
     from otslam_tpu_torch.kernels import tsdf_cuda as tc
-    from otslam_tpu_torch.kernels.tsdf_block import _depth_mips
-    band_k, vis_k = tc.classify_blocks(meta, depths, exts, intr)
-    band_p, vis_p = tc.classify_blocks_torch(meta, depths, exts, intr)
-    torch.cuda.synchronize()
-    mism = int((band_k != band_p).sum() + (vis_k != vis_p).sum())
-    check(mism == 0, f"K2 disagrees with its plain version at {mism} pairs")
-    ms = cuda_ms(lambda: tc.classify_blocks(meta, depths, exts, intr), 10)
-    plain_ms = cuda_ms(
-        lambda: tc.classify_blocks_torch(meta, depths, exts, intr), 10)
-    # both include the torch depth mip pyramid; time it alone too
-    mips_ms = cuda_ms(lambda: _depth_mips(depths), 10)
-    dev_ms = kernel_ms(lambda: tc.classify_blocks(meta, depths, exts, intr),
-                       10, "classify_kernel")
-    n, nb = band_k.shape
-    # the kernel reads the packed (th*tw, 8) f32 mip table and two f32 depth
-    # bounds of each frame and its extrinsic, and writes band and visible
-    # (a byte each); the block coordinates come from the thread index. About
-    # 55 f32 operations a (frame, block) pair (block centre, projection,
-    # pixel slack, frustum and depth-bound tests)
-    table = _depth_mips(depths)[0]
-    b = bound(table.numel() * 4 + n * 2 * 4 + exts.numel() * 4
-              + n * nb * 2, 55.0 * n * nb)
-    # the torch mips read the frames and write the table
-    mips_bytes = depths.numel() * 4 + table.numel() * 4
-    log(f"K2 classify: {tuple(band_k.shape)} pairs, band {int(band_p.sum())}"
-        f" visible {int(vis_p.sum())}, mismatches 0, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (both incl. the mips, {mips_ms:.4f} ms "
-        f"for {mips_bytes} bytes, bound "
-        f"{mips_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), kernel alone "
-        f"{fmt_ms(dev_ms)}, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return band_p, vis_p, {"max_abs_err": 0.0, "ms": ms,
-                           "kernel_ms": dev_ms, "plain_ms": plain_ms, **b,
-                           "library_ms": None, "mips_ms": mips_ms}
+    shapes = {"mips": [], "k2": [], "pack": []}
+    out = None
+    for label, f, reps in ((f"reconstruct {N_FRAMES} frames", slice(None),
+                            10),
+                           (f"f2m one frame ({F2M_FRAME})",
+                            slice(F2M_FRAME, F2M_FRAME + 1), 20)):
+        d, c, e = depths[f], colors[f], exts[f]
+        table, gb, th, tw = tc.depth_mips(d)
+        ptable, pgb, pth, ptw = tc.depth_mips_torch(d)
+        band, vis = tc.classify_blocks(meta, d, e, intr)
+        band_p, vis_p = tc.classify_blocks_torch(meta, d, e, intr)
+        cpk = tc.pack_rgb(c)
+        cpk_p = tc.pack_rgb_torch(c)
+        torch.cuda.synchronize()
+        check((th, tw) == (pth, ptw) and bool(torch.equal(table, ptable))
+              and bool(torch.equal(gb, pgb)),
+              f"the mip pass differs from its plain version at {label} "
+              f"({int((table != ptable).sum())} table values, "
+              f"{int((gb != pgb).sum())} bounds)")
+        check(band.dtype == vis.dtype == torch.bool
+              and bool(torch.equal(band, band_p))
+              and bool(torch.equal(vis, vis_p)),
+              f"K2 differs from its plain version at {label} on "
+              f"{int((band != band_p).sum() + (vis != vis_p).sum())} pairs")
+        check(bool(torch.equal(cpk, cpk_p)), f"the colour pack differs from "
+              f"its plain version at {label} on {int((cpk != cpk_p).sum())} "
+              "pixels")
+        n, nb = band.shape
+        # mips: the frames read once, the table and bounds written once;
+        # about 4 f32 operations a pixel (its test, select, min and max)
+        shapes["mips"].append(pass_record(
+            label, lambda: tc.depth_mips(d), lambda: tc.depth_mips_torch(d),
+            ("mips_tile_kernel", "mips_finish_kernel"),
+            d.numel() * 4 + table.numel() * 4 + gb.numel() * 4,
+            4.0 * d.numel(), reps))
+        # K2 reads the packed (th*tw, 8) f32 mip table, the two bounds and
+        # the extrinsic of each frame and writes band and visible (a byte
+        # each); the block coordinates come from the thread index. About 55
+        # f32 operations a (frame, block) pair (block centre, projection,
+        # pixel slack, frustum and depth-bound tests). Events time the
+        # wrapper with the mip pass in it, the trace the kernel alone
+        shapes["k2"].append(pass_record(
+            label, lambda: tc.classify_blocks(meta, d, e, intr),
+            lambda: tc.classify_blocks_torch(meta, d, e, intr),
+            "classify_kernel", table.numel() * 4 + gb.numel() * 4
+            + e.numel() * 4 + n * nb * 2, 55.0 * n * nb, reps))
+        # pack: 12 bytes read and 4 written a pixel; about 10 integer and
+        # f32 operations a pixel (3 clamps of 2, 3 casts, 2 shifts, 2 ors)
+        shapes["pack"].append(pass_record(
+            label, lambda: tc.pack_rgb(c), lambda: tc.pack_rgb_torch(c),
+            "pack_rgb_kernel", c.numel() * 4 + cpk.numel() * 4,
+            10.0 * cpk.numel(), reps))
+        log(f"  {label}: {n} frames x {nb} blocks, band {int(band_p.sum())} "
+            f"visible {int(vis_p.sum())}, mip table {th}x{tw} tiles; mips, "
+            f"K2 and pack equal to their plain versions")
+        for key, name in (("mips", "mip pass"), ("k2", "K2 (wrapper incl. "
+                          "mips; kernel alone)"), ("pack", "colour pack")):
+            r = shapes[key][-1]
+            log(f"    {name}: events {r['ms']:.4f} ms, kernel alone "
+                f"{fmt_ms(r['kernel_ms'])}, plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if out is None:
+            out = band_p, vis_p
+    records = {}
+    for key, kernel in (("mips", "mips_"), ("k2", "classify_kernel"),
+                        ("pack", "pack_rgb_kernel")):
+        regs = ptxas_registers(kernel)
+        records[key] = {**shapes[key][0], "registers": regs,
+                        "shapes": shapes[key]}
+        log(f"  {key}: registers {regs}")
+    log("K2 schedule: the mip pass, K2 and the colour pack bit-identical to "
+        "their plain versions at both shapes")
+    return (*out, records)
 
 
 def k1_shape(label, base, ids, ptr, frames, depths, colors, exts, intr,
@@ -378,16 +447,15 @@ def k1_shape(label, base, ids, ptr, frames, depths, colors, exts, intr,
     """K1 at one shape: the work list (ids, ptr, frames) fused into copies
     of the volume `base` by the kernel and by its plain version, which must
     agree bit for bit (tsdf, weight, colour); then its times, each call on a
-    fresh copy of `base`, and its bound. The log adds the instruction floor
-    and the time of pack_rgb, the colour pass before each launch."""
+    fresh copy of `base`, and its bound. The log adds the instruction
+    floor."""
     import copy
 
     import torch
 
     from otslam_tpu_torch.kernels import tsdf_cuda as tc
-    from otslam_tpu_torch.kernels.tsdf_block import pack_rgb
     ka, pa, ref = (copy.deepcopy(base) for _ in range(3))
-    cpk = pack_rgb(colors)
+    cpk = tc.pack_rgb(colors)
 
     def reset():
         for v in (ka, pa):
@@ -411,7 +479,6 @@ def k1_shape(label, base, ids, ptr, frames, depths, colors, exts, intr,
     plain_ms = cuda_ms(lambda: tc.fuse_blocks_torch(
         pa, ids, ptr, frames, depths, cpk, exts, intr), 3, setup=reset)
     dev_ms = kernel_ms(lambda: (reset(), fuse()), reps, "fuse_kernel")
-    pack_ms = cuda_ms(lambda: pack_rgb(colors), reps)
     # the listed blocks' 5 floats a voxel read and written once, the frames'
     # depth and packed colour read once; about 55 f32 operations a (voxel,
     # frame) pair (projection, rounding, sdf, four running means)
@@ -426,8 +493,7 @@ def k1_shape(label, base, ids, ptr, frames, depths, colors, exts, intr,
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, kernel alone "
         f"{fmt_ms(dev_ms)} (V={tc.VOXELS_PER_THREAD}), bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}), instruction floor at "
-        f"{K1_INSTRUCTIONS} a voxel pair {floor:.4f} ms; pack_rgb "
-        f"{pack_ms:.4f} ms")
+        f"{K1_INSTRUCTIONS} a voxel pair {floor:.4f} ms")
     return {"shape": label, "max_abs_err": 0.0, "ms": ms,
             "kernel_ms": dev_ms, "plain_ms": plain_ms, **b,
             "library_ms": None, "blocks": int(ids.shape[0]),
@@ -992,18 +1058,33 @@ def phase_mission(dev, workdir: str):
 
 
 def main() -> int:
+    """Exit code 0 when every phase passed, 1 when a check failed
+    (SmokeFailure, its message on stderr), 2 when the run cannot start
+    here: no CUDA GPU, or no otslam_tpu_torch package beside the script.
+    Only a passed run prints results."""
     sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on "
               "a CUDA GPU", file=sys.stderr)
-        return 1
+        return 2
     try:
         import otslam_tpu_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the otslam_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
+        return 2
+    try:
+        return smoke()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+
+
+def smoke() -> int:
+    """Phases 1-8 (the module docstring); raises SmokeFailure."""
+    import torch
+
     from otslam_tpu_torch.config import ReconstructionConfig
     from otslam_tpu_torch.eval.scenarios import scenario_gt
     from otslam_tpu_torch.kernels import _build, nn, raycast
@@ -1044,7 +1125,7 @@ def main() -> int:
     depths = torch.as_tensor(batch.depths, device=dev)
     colors = torch.as_tensor(batch.colors, device=dev)
     exts = torch.as_tensor(batch.extrinsics, device=dev)
-    band, vis, k2 = phase_k2(meta, depths, exts, intr)
+    band, vis, k2s = phase_k2(meta, depths, colors, exts, intr)
     torch.cuda.synchronize()
     k1 = phase_k1(vol_cfg, band, vis, depths, colors, exts, intr)
     torch.cuda.synchronize()
@@ -1056,15 +1137,17 @@ def main() -> int:
 
     # --- 4. main path -----------------------------------------------------
     gt = scenario_gt("cardboard", GT_POINTS)
-    counters = (tc.classify_blocks, tc.fuse_blocks, nn.nn_min,
-                nn.nn_min_windowed, raycast.ray_keys)
+    counters = (tc.depth_mips, tc.classify_blocks, tc.pack_rgb,
+                tc.fuse_blocks, nn.nn_min, nn.nn_min_windowed,
+                raycast.ray_keys)
+    # the fusion schedule's four launches: every path fuses frames
+    fusion = ("depth_mips", "classify_blocks", "pack_rgb", "fuse_blocks")
     for fn in counters:
         fn.launches = 0
     phase_reconstruct(batch, intr, cfg, dev, gt)
     launches = {fn.__name__: fn.launches for fn in counters}
     log(f"main path launches {launches}")
-    path_kernels = ("classify_blocks", "fuse_blocks", "nn_min")
-    check(all(launches[k] > 0 for k in path_kernels),
+    check(all(launches[k] > 0 for k in fusion + ("nn_min",)),
           f"a kernel of the path never launched: {launches}")
 
     # --- 6. registration path ---------------------------------------------
@@ -1074,7 +1157,8 @@ def main() -> int:
     torch.cuda.synchronize()
     reg_launches = {fn.__name__: fn.launches for fn in counters}
     log(f"registration path launches {reg_launches}")
-    check(all(reg_launches[fn.__name__] > 0 for fn in counters[:4]),
+    check(all(reg_launches[k] > 0
+              for k in fusion + ("nn_min", "nn_min_windowed")),
           f"a kernel of the registration path never launched: "
           f"{reg_launches}")
 
@@ -1090,7 +1174,8 @@ def main() -> int:
     torch.cuda.synchronize()
     mis_launches = {fn.__name__: fn.launches for fn in counters}
     log(f"mission path launches {mis_launches}")
-    check(mis_launches["ray_keys"] > 0, "K5 never launched in the mission")
+    check(all(mis_launches[k] > 0 for k in fusion + ("nn_min", "ray_keys")),
+          f"a kernel of the mission path never launched: {mis_launches}")
     check("jax" not in sys.modules, "jax was imported")
 
     def counts(name):
@@ -1105,10 +1190,18 @@ def main() -> int:
          "source": "otslam_tpu_torch/csrc/tsdf_fuse.cu",
          "replaces": "otslam_tpu/kernels/tsdf_pallas.py:92",
          **counts("fuse_blocks"), **k1},
+        {"name": "K2 depth-mip pass", "route": "cuda",
+         "source": "otslam_tpu_torch/csrc/depth_mips.cu",
+         "replaces": "otslam_tpu/kernels/tsdf_block.py:129",
+         **counts("depth_mips"), **k2s["mips"]},
         {"name": "K2 block classification", "route": "cuda",
          "source": "otslam_tpu_torch/csrc/tsdf_classify.cu",
          "replaces": "otslam_tpu/kernels/tsdf_pallas.py:378",
-         **counts("classify_blocks"), **k2},
+         **counts("classify_blocks"), **k2s["k2"]},
+        {"name": "colour pack before K1", "route": "cuda",
+         "source": "otslam_tpu_torch/csrc/pack_rgb.cu",
+         "replaces": "otslam_tpu_torch/kernels/tsdf_block.py:324",
+         **counts("pack_rgb"), **k2s["pack"]},
         {"name": "K3 nearest neighbour", "route": "cuda",
          "source": "otslam_tpu_torch/csrc/nn.cu",
          "replaces": "otslam_tpu/kernels/nn.py:49",

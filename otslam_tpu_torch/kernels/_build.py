@@ -44,10 +44,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
+    "otslam_depth_mips": [_P, _P, _P, _P,               # depth raw table gb
+                          _I, _I, _I, _I, _I, _P],      # n H W th tw stream
+    "otslam_pack_rgb": [_P, _P, _L, _P],                # rgb out pixels stream
     "otslam_classify": [_P, _P, _P, _P, _P,             # table gb ext band vis
                         _I, _I, _I, _I, _I, _I, _I, _I,  # n nb gby gbz th tw W H
                         _F, _F, _F, _F, _F, _F, _F, _F,  # ox oy oz vs half r rh sn

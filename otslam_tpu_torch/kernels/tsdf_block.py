@@ -13,9 +13,9 @@
 
 Everything in this module is plain PyTorch. The public fusion entry point,
 `integrate_frames_sparse`, runs the batched schedule of
-kernels/tsdf_cuda.py, whose classify (K2) and fusion (K1) wrappers launch
-the hand-written CUDA kernels for CUDA tensors and run the plain versions
-here for CPU tensors.
+kernels/tsdf_cuda.py, whose depth-mip, classify (K2), colour-pack and
+fusion (K1) wrappers launch the hand-written CUDA kernels for CUDA tensors
+and run the plain versions here for CPU tensors.
 
 The op order of every function follows the JAX one, so both packages round
 alike; tests state the tolerance of each comparison.

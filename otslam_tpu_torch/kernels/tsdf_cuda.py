@@ -2,16 +2,19 @@
 
 Counterpart of otslam_tpu/kernels/tsdf_pallas.py. The schedule:
 
-1. classify every (frame, block) pair (`classify_blocks`, kernel K2,
+1. the dilated min/max depth mips of every frame and their global bounds
+   (`depth_mips`, csrc/depth_mips.cu);
+2. classify every (frame, block) pair (`classify_blocks`, kernel K2,
    csrc/tsdf_classify.cu) into band (drives creation) and visible (drives
    integration);
-2. the creation recurrence ``created_f = created_in | OR_{f' <= f} band_f'``
+3. the creation recurrence ``created_f = created_in | OR_{f' <= f} band_f'``
    as a cumulative max over the frame axis (the JAX package's tril matmul,
    `_cumulative_or`); ``active = created & visible``;
-3. a CSR work list from the (N, NB) active mask, with one host sync:
+4. a CSR work list from the (N, NB) active mask, with one host sync:
    ids (blocks active in any frame, ascending), ptr (A+1,), frames (nnz,)
    ascending per block;
-4. fuse (`fuse_blocks`, kernel K1, csrc/tsdf_fuse.cu): per listed block,
+5. the colour pack (`pack_rgb`, csrc/pack_rgb.cu) into K1's int32 plane;
+6. fuse (`fuse_blocks`, kernel K1, csrc/tsdf_fuse.cu): per listed block,
    the running weighted mean over its frames in order, written once;
    `fuse_launch` gives its launch shape.
 
@@ -38,8 +41,9 @@ from otslam_tpu_torch.core.camera import PinholeIntrinsics
 from otslam_tpu_torch.kernels import _build
 from otslam_tpu_torch.kernels.tsdf import recip32
 from otslam_tpu_torch.kernels.tsdf_block import (
-    BLOCK, BLOCK_VOXELS, BlockTSDFVolume, _active_blocks, _depth_mips,
-    _sample_frame, _voxel_world_coords, classify_constants, pack_rgb)
+    BLOCK, BLOCK_VOXELS, MIP_TILE, BlockTSDFVolume, _active_blocks,
+    _depth_mips, _sample_frame, _voxel_world_coords, classify_constants)
+from otslam_tpu_torch.kernels.tsdf_block import pack_rgb as pack_rgb_torch
 
 
 def _f32(x: float) -> float:
@@ -53,6 +57,94 @@ def _ext12(extrinsics: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# K2's pre-passes: the depth mips and the colour pack
+# ---------------------------------------------------------------------------
+
+MAX_SHARED_BYTES = 232448    # shared memory a CUDA block may opt in to
+MAX_GRID_Y = 65535           # a CUDA grid's y dimension
+
+
+def mips_shared_bytes(th: int, tw: int) -> int:
+    """Shared memory of the mip pass's finishing kernel for a th x tw tile
+    grid (csrc/depth_mips.cu): the dilated level 0 and levels 1 and 2
+    before and after their dilation, 8 bytes a cell."""
+    c1 = -(-th // 2) * -(-tw // 2)
+    c2 = -(-th // 4) * -(-tw // 4)
+    return (th * tw + 2 * c1 + 2 * c2) * 8
+
+
+def depth_mips_torch(depths: torch.Tensor):
+    """Plain version of the mip pass: (table (N, th*tw, 8), gbounds (N, 2),
+    th, tw), the table of `_depth_mips` and each frame's (min of column 4,
+    max of column 5), the bounds of a footprint too big for level 2."""
+    table, th, tw = _depth_mips(depths)
+    gbounds = torch.stack([table[..., 4].amin(dim=-1),
+                           table[..., 5].amax(dim=-1)], dim=-1)
+    return table, gbounds, th, tw
+
+
+def depth_mips(depths: torch.Tensor):
+    """(table, gbounds, th, tw) of (N, H, W) depth: the mip kernels on
+    CUDA tensors, the plain version on CPU tensors. Bit-identical either
+    way."""
+    if depths.device.type == "cpu":
+        return depth_mips_torch(depths)
+    depths = depths.to(torch.float32).contiguous()
+    n, H, W = depths.shape
+    th, tw = -(-H // MIP_TILE), -(-W // MIP_TILE)
+    table = torch.empty((n, th * tw, 8), dtype=torch.float32,
+                        device=depths.device)
+    gbounds = torch.empty((n, 2), dtype=torch.float32, device=depths.device)
+    if n == 0:
+        return table, gbounds, th, tw
+    if n > MAX_GRID_Y:
+        raise ValueError(f"at most {MAX_GRID_Y} frames a call, got {n}")
+    if mips_shared_bytes(th, tw) > MAX_SHARED_BYTES:
+        raise ValueError(f"frames {H}x{W} give a {th}x{tw} tile grid, too "
+                         f"big for the mip pass's shared memory")
+    raw = torch.empty((n, th * tw, 2), dtype=torch.float32,
+                      device=depths.device)
+    _build.check_operands(depths, raw, table, gbounds)
+    lib = _build.load()
+    code = lib.otslam_depth_mips(
+        depths.data_ptr(), raw.data_ptr(), table.data_ptr(),
+        gbounds.data_ptr(), n, H, W, th, tw, _build.stream_ptr(depths.device))
+    _build.check(code, "otslam_depth_mips")
+    depth_mips.launches += 1
+    return table, gbounds, th, tw
+
+
+depth_mips.launches = 0
+
+
+def pack_rgb(colors: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) colour in [0, 255] -> (..., H, W) int32 0x00BBGGRR:
+    the pack kernel on CUDA tensors, the plain `tsdf_block.pack_rgb` on
+    CPU tensors. Bit-identical for every colour that is not NaN; the
+    kernel packs a NaN channel as 0."""
+    if colors.device.type == "cpu":
+        return pack_rgb_torch(colors)
+    if colors.shape[-1] != 3:
+        raise ValueError(f"colours must end in 3 channels, got "
+                         f"{tuple(colors.shape)}")
+    colors = colors.to(torch.float32).contiguous()
+    out = torch.empty(colors.shape[:-1], dtype=torch.int32,
+                      device=colors.device)
+    if out.numel() == 0:
+        return out
+    _build.check_operands(colors, out)
+    lib = _build.load()
+    code = lib.otslam_pack_rgb(colors.data_ptr(), out.data_ptr(), out.numel(),
+                               _build.stream_ptr(colors.device))
+    _build.check(code, "otslam_pack_rgb")
+    pack_rgb.launches += 1
+    return out
+
+
+pack_rgb.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K2: block classification
 # ---------------------------------------------------------------------------
 
@@ -63,20 +155,23 @@ def classify_blocks_torch(meta, depths, extrinsics, intr: PinholeIntrinsics):
 
 def classify_blocks(meta, depths: torch.Tensor, extrinsics: torch.Tensor,
                     intr: PinholeIntrinsics):
-    """(band, visible) bool (N, NB) for a frame batch: kernel K2 on CUDA
-    tensors, the plain version on CPU tensors. Bit-identical either way."""
+    """(band, visible) bool (N, NB) for a frame batch: the mip pass and
+    kernel K2 on CUDA tensors, the plain version on CPU tensors.
+    Bit-identical either way."""
     if depths.device.type == "cpu":
         return classify_blocks_torch(meta, depths, extrinsics, intr)
     (gbx, gby, gbz), origin, vs, trunc = meta
     nb = gbx * gby * gbz
     n = depths.shape[0]
-    table, th, tw = _depth_mips(depths)             # (N, th*tw, 8), on card
-    table = table.contiguous()
-    gbounds = torch.stack([table[..., 4].amin(dim=-1),
-                           table[..., 5].amax(dim=-1)], dim=-1).contiguous()
-    ext = _ext12(extrinsics)
-    band = torch.empty((n, nb), dtype=torch.uint8, device=depths.device)
+    band = torch.empty((n, nb), dtype=torch.bool, device=depths.device)
     vis = torch.empty_like(band)
+    if n == 0:
+        return band, vis
+    ext = extrinsics.to(torch.float32).contiguous()   # read in place
+    if ext.shape != (n, 4, 4):
+        raise ValueError(f"extrinsics {tuple(ext.shape)} for {n} frames: "
+                         f"need ({n}, 4, 4)")
+    table, gbounds, th, tw = depth_mips(depths)
     _build.check_operands(table, gbounds, ext, band, vis)
     r, slack_num = classify_constants(meta, intr)
     lib = _build.load()
@@ -90,7 +185,7 @@ def classify_blocks(meta, depths: torch.Tensor, extrinsics: torch.Tensor,
         _build.stream_ptr(depths.device))
     _build.check(code, "otslam_classify")
     classify_blocks.launches += 1
-    return band.bool(), vis.bool()
+    return band, vis
 
 
 classify_blocks.launches = 0

@@ -17,13 +17,21 @@ of kernel launches, each of the repo's kernels with its launches and
 device milliseconds at the path's own shapes (their sum, mean, spread and
 the three longest launches, which tell a path's shapes apart), the top
 device items by total
-time, and the host's cumulative seconds in the path's stages. Prints the
-card's name and power limit first (nvidia-smi). Needs a CUDA device.
+time, and the host's cumulative seconds in the path's stages. The fusion
+schedule's passes (`PASSES`: the classification, the depth mips, the
+colour pack) each run inside a profiler range, so the report also gives
+each pass's calls, host milliseconds and the device milliseconds of the
+torch ops launched inside it; the trace does not tie the repo's own
+kernels (launched through ctypes) to a range, so those count by name
+(`KERNELS`). Prints the card's name and power limit first (nvidia-smi).
+Needs a CUDA device. All three paths take ~10 minutes on an H100, most of
+it the profiler's reading of registration's ~740 000 launches.
 """
 
 from __future__ import annotations
 
 import cProfile
+import functools
 import io
 import os
 import pstats
@@ -34,24 +42,56 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PATHS = ("reconstruct", "registration", "mission")
+# the fusion schedule's passes before K1, by function name: K2's wrapper,
+# the depth mips (the card's pass and the plain torch pyramid) and the
+# colour pack (tsdf_cuda's wrapper and the plain tsdf_block.pack_rgb)
+PASSES = ("classify_blocks", "depth_mips", "_depth_mips", "pack_rgb")
 # each path's stages, by function name (cProfile cumulative seconds)
 STAGES = {
     "reconstruct": ("reconstruct_frames", "auto_volume_config",
-                    "fuse_frames", "extract_filtered_cloud", "evaluate_map"),
+                    "fuse_frames", "extract_filtered_cloud", "evaluate_map")
+    + PASSES,
     "registration": ("reconstruct_frames", "refine_trajectory",
                      "refine_trajectory_pgo", "_annealed_icp",
                      "detect_loop_closures", "track_frame_to_tsdf",
                      "optimize_pose_graph", "fuse_frames", "evaluate_map",
-                     "localize"),
+                     "localize") + PASSES,
     "mission": ("run", "perception_tick_batch", "_transit_perception",
                 "_run_tick_batch", "perception_ticks", "render_lidar",
                 "render_lidar_path", "_estimate_pose", "_post_perception",
                 "_scan_action", "_grab_frames", "save_frame",
-                "reconstruct_all", "evaluate_map"),
+                "reconstruct_all", "evaluate_map") + PASSES,
 }
 # the repo's CUDA kernels (csrc/), by their names in a trace
-KERNELS = ("classify_kernel", "fuse_kernel", "nn_kernel", "nn_window_kernel",
+KERNELS = ("mips_tile_kernel", "mips_finish_kernel", "classify_kernel",
+           "pack_rgb_kernel", "fuse_kernel", "nn_kernel", "nn_window_kernel",
            "nn_merge_kernel", "raycast_kernel")
+RANGE = "pass:"   # prefix of the profiler ranges around the PASSES
+
+
+def wrap_passes() -> None:
+    """Run every function named in PASSES, wherever an otslam_tpu_torch
+    module holds it (its own module or one that imported it), inside a
+    torch.profiler range `pass:<module>.<name>`. The wrapper shares the
+    function's attributes, so a launch counter still counts."""
+    import torch
+    wrapped = {}
+    for mod_name, mod in list(sys.modules.items()):
+        if not mod_name.startswith("otslam_tpu_torch"):
+            continue
+        for name in PASSES:
+            fn = getattr(mod, name, None)
+            if fn is None or not callable(fn) or not getattr(
+                    fn, "__module__", "").startswith("otslam_tpu_torch"):
+                continue
+            if fn not in wrapped:
+                label = f"{RANGE}{fn.__module__}.{name}"
+
+                def ranged(*args, _fn=fn, _label=label, **kwargs):
+                    with torch.profiler.record_function(_label):
+                        return _fn(*args, **kwargs)
+                wrapped[fn] = functools.update_wrapper(ranged, fn)
+            setattr(mod, name, wrapped[fn])
 
 
 def profile_path(name: str, run) -> None:
@@ -80,7 +120,11 @@ def profile_path(name: str, run) -> None:
     events = prof.events()
     by_name: dict = {}
     for e in events:
-        if e.device_type == DeviceType.CUDA:
+        # a range's own device-side span (a user annotation) is no device
+        # work: the kernels inside it are counted each on its own
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.name.startswith(RANGE)):
             n, ms = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() * 1e-3)
     busy = sum(ms for _, ms in by_name.values()) * 1e-3
@@ -99,6 +143,15 @@ def profile_path(name: str, run) -> None:
                  f"{each[n // 2]:.4f}, max {each[-1]:.4f}; the "
                  f"{min(n, 3)} longest {sum(each[-3:]):.4f} ms)"
                  if n else ""))
+    spans: dict = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith(RANGE):
+            n, host, dev = spans.get(e.name, (0, 0.0, 0.0))
+            spans[e.name] = (n + 1, host + e.cpu_time_total * 1e-3,
+                             dev + e.device_time_total * 1e-3)
+    for label, (n, host, dev) in sorted(spans.items()):
+        print(f"  pass {label[len(RANGE):]}: {n} calls, host {host:.4f} ms,"
+              f" device {dev:.4f} ms (torch ops launched inside it)")
     print("  top device items (total ms, count):")
     for key, (n, ms) in ranked[:12]:
         print(f"  {ms:10.4f} ms {n:7d}x  {key[:90]}")
@@ -123,8 +176,10 @@ def main(argv: list[str]) -> int:
         print(f"profile_paths: paths are {', '.join(PATHS)}", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    import otslam_tpu_torch.kernels.tsdf_cuda  # noqa: F401 (for wrap_passes)
     from otslam_tpu_torch.config import ReconstructionConfig
     from otslam_tpu_torch.eval.scenarios import scenario_gt
+    wrap_passes()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -22,6 +22,7 @@ from otslam_tpu_torch.kernels import nn, raycast, tsdf_cuda as tc
 from otslam_tpu_torch.kernels import tsdf_block as ttb
 from otslam_tpu_torch.sim.sensors import look_at_pose, render_rgbd
 from otslam_tpu_torch.sim.world import cardboard_room
+from torch_cases import MIP_CASES, MIP_SIZES, colours, mip_depth
 
 pytestmark = pytest.mark.cuda
 
@@ -54,14 +55,78 @@ def frames():
 
 
 def test_classify_kernel_matches_plain(dev, frames):
+    """K2 (with the mip pass before it) writes torch.bool band and
+    visible, bit-identical to the plain version, for the whole batch and
+    for one frame."""
     depths, _, exts = (x.to(dev) for x in frames)
     meta = ttb.make_block_volume(VOL, dev).meta
-    before = tc.classify_blocks.launches
-    band_k, vis_k = tc.classify_blocks(meta, depths, exts, INTR)
-    band_p, vis_p = tc.classify_blocks_torch(meta, depths, exts, INTR)
-    assert tc.classify_blocks.launches == before + 1
-    assert band_p.any() and torch.equal(band_k, band_p)
-    assert torch.equal(vis_k, vis_p)
+    for f in (slice(None), slice(5, 6)):
+        before = (tc.depth_mips.launches, tc.classify_blocks.launches)
+        band_k, vis_k = tc.classify_blocks(meta, depths[f], exts[f], INTR)
+        band_p, vis_p = tc.classify_blocks_torch(meta, depths[f], exts[f],
+                                                 INTR)
+        assert (tc.depth_mips.launches,
+                tc.classify_blocks.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+        assert band_k.dtype == vis_k.dtype == torch.bool
+        assert band_p.any() and torch.equal(band_k, band_p)
+        assert torch.equal(vis_k, vis_p)
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("case", MIP_CASES)
+def test_mip_kernel_matches_plain(dev, case, n):
+    """The mip pass's table and global bounds bit-identical to the plain
+    version at tile-aligned and ragged sizes, without depth, and with inf,
+    negative and NaN pixels; then on rows that are not 16-byte aligned
+    (scalar loads)."""
+    d = torch.as_tensor(mip_depth(case, n, seed=n), device=dev)
+    store = torch.empty(d.numel() + 1, device=dev)
+    unaligned = store[1:].view(d.shape)
+    unaligned.copy_(d)
+    want = tc.depth_mips_torch(d)
+    for depths in (d, unaligned):
+        before = tc.depth_mips.launches
+        table, gbounds, th, tw = tc.depth_mips(depths)
+        assert tc.depth_mips.launches == before + 1
+        assert (th, tw) == want[2:]
+        assert torch.equal(table, want[0]) and torch.equal(gbounds, want[1])
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("case", MIP_CASES)
+def test_pack_kernel_matches_plain(dev, case, n):
+    """The colour pack bit-identical to tsdf_block.pack_rgb (values out of
+    range and +-inf clamped), on whole frames and on a pixel list that
+    starts one pixel in (not 16-byte aligned) and is no multiple of 4."""
+    h, w = MIP_SIZES[case]
+    c = torch.as_tensor(colours(n, h, w, seed=n), device=dev)
+    for cols in (c, c.reshape(-1, 3)[1:]):
+        before = tc.pack_rgb.launches
+        got = tc.pack_rgb(cols)
+        assert tc.pack_rgb.launches == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, ttb.pack_rgb(cols))
+
+
+def test_pack_kernel_packs_nan_as_zero(dev):
+    """A NaN channel packs as 0 (the plain version's cast of a NaN has no
+    defined value, so the equality tests leave NaN out)."""
+    c = torch.tensor([[float("nan"), 7.9, 300.0],
+                      [12.0, float("nan"), float("nan")]], device=dev)
+    assert tc.pack_rgb(c).tolist() == [(255 << 16) | (7 << 8), 12]
+
+
+def test_integration_launches_each_kernel_once(dev, frames):
+    """One integrate_frames_cuda call on the card runs the mip pass, K2,
+    the colour pack and K1 once each, and no plain pass."""
+    counters = (tc.depth_mips, tc.classify_blocks, tc.pack_rgb,
+                tc.fuse_blocks)
+    before = [fn.launches for fn in counters]
+    vol = tc.integrate_frames_cuda(ttb.make_block_volume(VOL, dev),
+                                   *(x.to(dev) for x in frames), INTR)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1] * 4
+    assert vol.weight.sum() > 0
 
 
 def same_volume(a, b):

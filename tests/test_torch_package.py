@@ -46,7 +46,9 @@ finally:
     print("REPORT " + json.dumps({
         "jax": "jax" in sys.modules,
         "otslam_tpu": "otslam_tpu" in sys.modules,
-        "launches": [tsdf_cuda.classify_blocks.launches,
+        "launches": [tsdf_cuda.depth_mips.launches,
+                     tsdf_cuda.classify_blocks.launches,
+                     tsdf_cuda.pack_rgb.launches,
                      tsdf_cuda.fuse_blocks.launches, nn.nn_min.launches,
                      nn.nn_min_windowed.launches,
                      raycast.ray_keys.launches]}))
@@ -123,7 +125,7 @@ for i in range(8):
     assert rec.returncode == 0, rec.stderr
     assert "Object_0: " in rec.stdout and "from 8 frames" in rec.stdout
     r = report(rec)
-    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0] * 5
+    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0] * 7
     ply = root / "3d_reconst" / "Object_0.ply"
     ev = run_py(CLI, "eval", "--map", str(ply), "--gt-samples", "5000",
                 "--device", "cpu")
@@ -131,7 +133,7 @@ for i in range(8):
     metrics = json.loads(ev.stdout.splitlines()[0])
     assert 0 < metrics["accuracy_cm"] < 2.0
     r = report(ev)
-    assert not r["jax"] and r["launches"] == [0] * 5
+    assert not r["jax"] and r["launches"] == [0] * 7
 
 
 def test_unported_options_raise():
@@ -163,6 +165,25 @@ def test_missing_cuda_raises_instead_of_running_on_cpu(tmp_path):
     proc = run_py(CLI, "eval", "--map", ply, "--gt-samples", "10")
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_without_a_card_or_package_exits_2(where, tmp_path):
+    """chip_smoke.py cannot start without a CUDA GPU (this machine) or
+    without the package beside it (a directory holding only the script):
+    exit code 2, a reason on stderr and no result on stdout. Code 1 is
+    left to a failed check."""
+    if torch.cuda.is_available() and where == "repo":
+        pytest.skip("this machine has CUDA: the script would run")
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                          env=dict(os.environ, PYTHONPATH=""),
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 2, proc.stderr
+    assert proc.stdout == "" and "chip_smoke:" in proc.stderr
 
 
 def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):

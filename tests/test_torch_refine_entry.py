@@ -146,7 +146,7 @@ def test_cli_refine_pgo_and_eval_icp_on_the_cpu(dataset, tmp_path):
     assert rec.returncode == 0, rec.stderr
     assert "Object_0: " in rec.stdout and "from 8 frames" in rec.stdout
     r = report(rec)
-    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0] * 5
+    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0] * 7
     ev = run_py(CLI, "eval", "--map", str(out / "Object_0.ply"),
                 "--gt-samples", "5000", "--icp", "--device", "cpu")
     assert ev.returncode == 0, ev.stderr
@@ -154,4 +154,4 @@ def test_cli_refine_pgo_and_eval_icp_on_the_cpu(dataset, tmp_path):
     assert 0 < metrics["accuracy_cm"] < 2.0
     assert 0 < metrics["icp_fitness"] <= 1.0
     r = report(ev)
-    assert not r["jax"] and r["launches"] == [0] * 5
+    assert not r["jax"] and r["launches"] == [0] * 7

@@ -22,6 +22,7 @@ from otslam_tpu_torch.core.camera import PinholeIntrinsics
 from otslam_tpu_torch.kernels import tsdf as ttsdf
 from otslam_tpu_torch.kernels import tsdf_block as ttb
 from otslam_tpu_torch.kernels import tsdf_cuda as tc
+from torch_cases import MIP_CASES, mip_depth
 from torch_parity import (J_SMALL, T_SMALL, ambiguous_voxels,
                           assert_fusion_matches, capture, voxel_centers)
 
@@ -68,15 +69,23 @@ def check_block_fusion(jvol, tvol, depths, exts):
 
 
 class TestClassify:
-    def test_depth_mips_match(self, frames):
-        depths = frames[0]
-        tj, thj, twj = jtb._depth_mips(j(depths[0]))
-        tt, tht, twt = ttb._depth_mips(t(depths[0]))
-        assert (thj, twj) == (tht, twt)
-        np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
-        # batched form equals the per-frame one
-        tb, _, _ = ttb._depth_mips(t(depths))
-        np.testing.assert_array_equal(tb[0].numpy(), tt.numpy())
+    @pytest.mark.parametrize("case", ("capture",) + MIP_CASES)
+    def test_depth_mips_match(self, frames, case):
+        """The plain mip table and global bounds equal JAX's _depth_mips
+        and depth_mip_planes' bounds bit for bit: at tile-aligned and
+        ragged frame sizes, a frame without depth, and inf, negative and
+        NaN pixels. The batched form equals the per-frame one, and
+        tsdf_cuda.depth_mips (CPU tensors: the plain version) equals it."""
+        depths = frames[0][:2] if case == "capture" else mip_depth(case, 2)
+        tb, gb, th, tw = tc.depth_mips(t(depths))
+        for k in range(len(depths)):
+            tj, thj, twj = jtb._depth_mips(j(depths[k]))
+            _, gj, _, _ = jtb.depth_mip_planes(j(depths[k]))
+            tt, tht, twt = ttb._depth_mips(t(depths[k]))
+            assert (thj, twj) == (tht, twt) == (th, tw)
+            np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+            np.testing.assert_array_equal(tb[k].numpy(), tt.numpy())
+            np.testing.assert_array_equal(gb[k].numpy(), np.asarray(gj))
 
     def test_active_blocks_bit_identical(self, frames):
         depths, _, exts = frames

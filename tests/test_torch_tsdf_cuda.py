@@ -16,6 +16,7 @@ from otslam_tpu.kernels.tsdf_pallas import _cumulative_or
 from otslam_tpu_torch.config import TSDFConfig
 from otslam_tpu_torch.kernels import tsdf_block as ttb
 from otslam_tpu_torch.kernels import tsdf_cuda as tc
+from torch_cases import MIP_CASES, colours, mip_depth
 from torch_parity import T_SMALL, capture
 
 VOL = TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, dims=(64, 64, 32),
@@ -64,9 +65,11 @@ def test_dead_row_restored_and_cpu_never_launches():
     depths, colors, exts = (torch.from_numpy(a) for a in capture(3))
     vol = ttb.make_block_volume(VOL, device="cpu")
     vol.tsdf[-1] = 5.0                     # a dirtied dead row
-    launches = (tc.classify_blocks.launches, tc.fuse_blocks.launches)
+    counters = (tc.depth_mips, tc.classify_blocks, tc.pack_rgb,
+                tc.fuse_blocks)
+    launches = [fn.launches for fn in counters]
     ttb.integrate_frames_sparse(vol, depths, colors, exts, T_SMALL)
-    assert (tc.classify_blocks.launches, tc.fuse_blocks.launches) == launches
+    assert [fn.launches for fn in counters] == launches
     assert vol.weight.sum() > 0
     assert float(vol.tsdf[-1].abs().sum()) == 0.0
 
@@ -89,6 +92,45 @@ def test_pack_rgb_is_the_little_endian_bytes_of_the_colour(small_capture):
         got = ttb.pack_rgb(c)
         assert got.dtype == torch.int32 and torch.equal(got, want)
     assert (ttb.pack_rgb(noisy) != ttb.pack_rgb(colors)).any()
+
+
+@pytest.mark.parametrize("case", MIP_CASES)
+def test_depth_mips_on_the_cpu_is_the_plain_version(case):
+    """On CPU tensors depth_mips is depth_mips_torch (the table of
+    tsdf_block._depth_mips and its column-4 min / column-5 max) and
+    launches nothing."""
+    depths = torch.from_numpy(mip_depth(case, 3, seed=4))
+    launches = tc.depth_mips.launches
+    table, gbounds, th, tw = tc.depth_mips(depths)
+    assert tc.depth_mips.launches == launches
+    plain, pth, ptw = ttb._depth_mips(depths)
+    assert (th, tw) == (pth, ptw) == tuple(-(-s // ttb.MIP_TILE)
+                                           for s in depths.shape[1:])
+    assert table.shape == (3, th * tw, 8) and torch.equal(table, plain)
+    assert gbounds.shape == (3, 2)
+    assert torch.equal(gbounds[:, 0], plain[..., 4].amin(dim=1))
+    assert torch.equal(gbounds[:, 1], plain[..., 5].amax(dim=1))
+
+
+def test_pack_rgb_on_the_cpu_is_the_plain_version():
+    """On CPU tensors tsdf_cuda.pack_rgb is tsdf_block.pack_rgb (floats
+    out of range and +-inf included) and launches nothing."""
+    c = torch.from_numpy(colours(2, 37, 53, seed=3))
+    launches = tc.pack_rgb.launches
+    got = tc.pack_rgb(c)
+    assert tc.pack_rgb.launches == launches
+    assert got.dtype == torch.int32 and torch.equal(got, ttb.pack_rgb(c))
+    assert int(got.max()) <= 0xFFFFFF and int(got.min()) >= 0
+
+
+def test_mip_shared_memory_fits_the_paths_frames():
+    """The mip pass's finishing kernel holds a frame's tile grid in shared
+    memory: 15.7 KB at VGA (30 x 40 tiles), within a block's default 48
+    KB; a 4K frame (135 x 240 tiles) is more than a block can opt in to,
+    and the wrapper refuses it before launching."""
+    assert tc.mips_shared_bytes(30, 40) == (1200 + 2 * 300 + 2 * 80) * 8
+    assert tc.mips_shared_bytes(30, 40) <= 48 * 1024
+    assert tc.mips_shared_bytes(135, 240) > tc.MAX_SHARED_BYTES
 
 
 def test_fuse_blocks_on_the_cpu_is_the_plain_version(small_capture):
