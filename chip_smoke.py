@@ -33,6 +33,17 @@ wrong:
    -> evaluate_map against the 50k-point scenario GT; every kernel of the
    path (mips, K2, pack, K1, K3) must have launched and the accuracy must
    be < 1 cm;
+4b. mesh path: the same capture through reconstruct_frames(output="mesh")
+   -> write_ply(faces=...) -> read_ply; the faces must index the vertices,
+   everything be finite, the vertices at z >= z_filter_threshold score an
+   accuracy < 1 cm against the phase-4 GT (K3), and the mips, K2, the
+   pack, K1 and K3 have launched. Then on the fused block volume:
+   extract_mesh_soup_block on the card equals its run on the CPU (masks
+   equal, vertices and colours within 1e-6); the dense path on the
+   densified 256^3 volume gives the block path's triangles as a set; and
+   extract_meshes_block on two volumes with different origins equals the
+   single path for each. Prints the triangles, welded vertices and the
+   seconds of extraction (block path, dense 256^3 path) and of the weld;
 5. K4 windowed nearest neighbour against its plain version (bit-identical
    d^2 and index on every row) and against K3 (identical on every row whose
    nearest neighbour lies within the radius, >= the radius elsewhere) at
@@ -62,7 +73,7 @@ wrong:
    missions, the removed-object check visited, every cloud non-empty and
    finite, and Object_0's accuracy < 2 cm.
 
-Each path (phases 4, 6 and 8) is driven with the launch counters set to 0
+Each path (phases 4, 4b, 6 and 8) is driven with the launch counters set to 0
 just before it and read just after. Every kernel's record carries two
 times: `ms`, CUDA events around the wrapper call (its host work included),
 and `kernel_ms`, the kernel alone in a torch.profiler trace (K3/K4: the
@@ -78,7 +89,7 @@ wrapper with the mip pass in it, its `kernel_ms` the classify kernel
 alone. The line before the last two is
 the kernels' JSON record, then the nvidia-smi name/power line; the last
 line is {"ok": true, "device": {...}}. JAX and otslam_tpu are never
-imported. profile_paths.py drives phases 4, 6 and 8 under a profiler.
+imported. profile_paths.py drives phases 4, 4b, 6 and 8 under a profiler.
 """
 
 from __future__ import annotations
@@ -806,6 +817,150 @@ def phase_reconstruct(batch, intr, cfg, dev, gt):
           f"accuracy {metrics.accuracy_cm} cm >= 1 cm")
 
 
+def phase_mesh_path(batch, intr, cfg, dev, gt):
+    """The main path with mesh output (phase 4b): reconstruct_frames with
+    output="mesh" and an auto volume, then write_ply(faces=...) ->
+    read_ply -> evaluate_map of the vertices at z >= z_filter_threshold
+    against `gt`. Fails on faces out of range, a non-finite value or an
+    accuracy >= 1 cm. Returns (triangles, welded vertices, stage
+    seconds)."""
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch.core import io as tio
+    from otslam_tpu_torch.eval.metrics import evaluate_map
+    from otslam_tpu_torch.pipeline.reconstruct import reconstruct_frames
+    stages: dict = {}
+    t0 = time.perf_counter()
+    res = reconstruct_frames(batch, intr, cfg, backend="pallas",
+                             auto_origin=True, output="mesh", device=dev,
+                             timings=stages)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "Object_0.ply")
+        t1 = time.perf_counter()
+        tio.write_ply(path, res.points, colors=res.colors,
+                      normals=res.normals, faces=res.faces)
+        mesh = tio.read_ply(path)
+        stages["ply"] = time.perf_counter() - t1
+    verts, faces = mesh["points"], mesh.get("faces")
+    check(faces is not None and faces.ndim == 2 and faces.shape[1] == 3
+          and len(faces) > 0, "the mesh PLY holds no faces")
+    check(int(faces.min()) >= 0 and int(faces.max()) < len(verts),
+          f"faces index [{faces.min()}, {faces.max()}] of {len(verts)} "
+          "vertices")
+    check(all(bool(np.isfinite(mesh[k]).all())
+              for k in ("points", "colors", "normals")),
+          "the mesh has non-finite values")
+    above = verts[verts[:, 2] >= cfg.z_filter_threshold]
+    t1 = time.perf_counter()
+    metrics = evaluate_map(above, gt, device=dev)
+    torch.cuda.synchronize()
+    stages["eval"] = time.perf_counter() - t1
+    total = time.perf_counter() - t0
+    log("mesh path stages (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + f", total {total:.4f}")
+    log(f"mesh path: {len(faces)} faces, {len(verts)} welded vertices "
+        f"({len(above)} at z >= {cfg.z_filter_threshold}), accuracy "
+        f"{metrics.accuracy_cm:.4f} cm, completeness "
+        f"{metrics.completeness_cm:.4f} cm")
+    check(metrics.accuracy_cm < 1.0,
+          f"mesh accuracy {metrics.accuracy_cm} cm >= 1 cm")
+    return len(faces), len(verts), stages
+
+
+def seconds(fn, reps: int = 3):
+    """Mean host seconds of fn() ending in a device sync, after a
+    warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_mesh_checks(batch, intr, cfg, vol_cfg, dev, card):
+    """Phase 4b's checks on the fused block volume of the capture: the
+    block soup on the card against the CPU, the dense 256^3 path against
+    the block path as a triangle set, the batched path against the single
+    one; then the extraction and weld times."""
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch.kernels import marching as mt
+    from otslam_tpu_torch.kernels.tsdf_block import block_to_dense
+    from otslam_tpu_torch.pipeline.reconstruct import fuse_frames
+    vol = fuse_frames(batch.depths, batch.colors, batch.extrinsics, intr,
+                      dataclasses.replace(cfg, tsdf=vol_cfg), "pallas",
+                      densify=False, device=dev)
+    mb, mc = mt.auto_mesh_block_config(vol)
+    soup = mt.extract_mesh_soup_block(vol, mb, mc)
+    cpu = dataclasses.replace(vol, **{k: getattr(vol, k).cpu() for k in (
+        "tsdf", "weight", "color", "created")})
+    cpu_soup = mt.extract_mesh_soup_block(cpu, mb, mc)
+    torch.cuda.synchronize()
+    mask = soup[2].cpu()
+    check(bool(torch.equal(mask, cpu_soup[2])),
+          f"the card's soup mask differs from the CPU's on "
+          f"{int((mask != cpu_soup[2]).sum())} triangles")
+    err = max(float((soup[k].cpu()[mask] - cpu_soup[k][mask]).abs().max())
+              for k in (0, 1))
+    check(err <= 1e-6, f"the card's soup differs from the CPU's by {err}")
+    n_tri = int(mask.sum())
+    log(f"mesh soup: {n_tri} triangles of {mc * 12} rows (max_blocks {mb}, "
+        f"max_cells {mc}, {int(vol.created.sum())} created blocks); card "
+        f"and CPU agree (mask equal, max |diff| {err:.3g})")
+
+    def tris(s):
+        m = s[2]
+        flat = s[0][m].cpu().numpy()
+        col = s[1][m].cpu().numpy()
+        order = np.lexsort(flat.T[::-1])
+        return flat[order], col[order]
+    dense = block_to_dense(vol)
+    dmc = mt.auto_max_cells(dense)
+    d_soup = mt.extract_mesh_soup(dense, dmc)
+    (dv, dc), (bv, bc) = tris(d_soup), tris(soup)
+    check(dv.shape == bv.shape and bool((dv == bv).all())
+          and bool((dc == bc).all()),
+          f"the dense {vol_cfg.dims} path gives {len(dv)} triangles, not the "
+          f"block path's {len(bv)} as a set")
+    log(f"mesh dense {tuple(dense.dims)}: the block path's {len(dv)} "
+        f"triangles as a set (max_cells {dmc})")
+
+    other = dataclasses.replace(
+        vol, tsdf=vol.tsdf * 0.7,
+        origin=tuple(o + d for o, d in zip(vol.origin, (0.08, -0.04, 0.02))))
+    # the shared capacities: the max of the two volumes' auto configs
+    bmb, bmc = mt._validate_batch([vol, other])
+    b_verts, b_cols, b_masks = mt.extract_meshes_block([vol, other], bmb,
+                                                       bmc)
+    for b, v in enumerate((vol, other)):
+        sv, sc, sm = mt.extract_mesh_soup_block(v, bmb, bmc)
+        check(bool(torch.equal(b_masks[b], sm))
+              and bool(torch.equal(b_verts[b][sm], sv[sm]))
+              and bool(torch.equal(b_cols[b][sm], sc[sm])),
+              f"extract_meshes_block differs from the single path on "
+              f"volume {b}")
+    log("mesh batched: extract_meshes_block equals the single path on two "
+        "volumes with different origins")
+
+    block_s = seconds(lambda: mt.extract_mesh_soup_block(
+        vol, *mt.auto_mesh_block_config(vol)))
+    dense_s = seconds(lambda: mt.extract_mesh_soup(dense,
+                                                   mt.auto_max_cells(dense)))
+    t0 = time.perf_counter()
+    welded = mt._weld_mesh(*soup)
+    weld_s = time.perf_counter() - t0
+    log(f"mesh times ({card}): extraction, block path with its auto "
+        f"config {block_s:.4f} s; dense {tuple(dense.dims)} path with its "
+        f"auto capacity {dense_s:.4f} s; weld {weld_s:.4f} s; {n_tri} "
+        f"triangles, {len(welded[0])} welded vertices, {len(welded[1])} "
+        "faces")
+
+
 def drift(exts, seed: int = 0, t_sigma: float = 0.012,
           r_sigma: float = 0.008):
     """Compounding odometry drift (tests/test_refine.py's perturb): per-step
@@ -1082,7 +1237,7 @@ def main() -> int:
 
 
 def smoke() -> int:
-    """Phases 1-8 (the module docstring); raises SmokeFailure."""
+    """Phases 1-8 and 4b (the module docstring); raises SmokeFailure."""
     import torch
 
     from otslam_tpu_torch.config import ReconstructionConfig
@@ -1150,6 +1305,18 @@ def smoke() -> int:
     check(all(launches[k] > 0 for k in fusion + ("nn_min",)),
           f"a kernel of the path never launched: {launches}")
 
+    # --- 4b. mesh path ----------------------------------------------------
+    for fn in counters:
+        fn.launches = 0
+    phase_mesh_path(batch, intr, cfg, dev, gt)
+    torch.cuda.synchronize()
+    mesh_launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"mesh path launches {mesh_launches}")
+    check(all(mesh_launches[k] > 0 for k in fusion + ("nn_min",)),
+          f"a kernel of the mesh path never launched: {mesh_launches}")
+    phase_mesh_checks(batch, intr, cfg, vol_cfg, dev, card)
+    torch.cuda.synchronize()
+
     # --- 6. registration path ---------------------------------------------
     for fn in counters:
         fn.launches = 0
@@ -1180,6 +1347,7 @@ def smoke() -> int:
 
     def counts(name):
         by_path = {"reconstruct": launches[name],
+                   "mesh": mesh_launches[name],
                    "registration": reg_launches[name],
                    "mission": mis_launches[name]}
         return {"launches": sum(by_path.values()),

@@ -1,10 +1,16 @@
 """Command-line interface of the port (counterpart of otslam_tpu/cli.py).
 
   reconstruct   3d_model/reconstruct_rgbd[_filter|_gt].py, multi_reconstruct
+  check-frame   3d_model/check_one_frame.py
+  probe-depth   3d_model/depth_scale.py + depth_visual.py
+  trajectory    3d_model/visualize_trajectory.py
+  hybrid-map    fusion/hybrid_map.py (+ manual alignment offsets)
+  merge-2d      fusion/2d_selective_merge.py (explicit regions, headless)
   eval          eval/eval_*.py (analytic GT scenarios or a GT ply)
   mission       closed-loop simulated mission (the Gazebo-equivalent run)
 
-Same flags as the JAX package's subcommands, plus ``--device``. Run as
+Same flags as the JAX package's subcommands, plus ``--device`` where a
+command runs on a device. Run as
 ``python -m otslam_tpu_torch.cli <subcommand> ...``.
 """
 
@@ -14,6 +20,8 @@ import argparse
 import json
 import os
 import time
+
+import numpy as np
 
 
 def _add_device(p):
@@ -31,8 +39,7 @@ def _add_reconstruct(sub):
     p.add_argument("--backend", default="pallas",
                    choices=["pallas", "sparse", "dense"])
     p.add_argument("--mesh", action="store_true",
-                   help="save triangle meshes instead of filtered clouds "
-                        "(not ported yet)")
+                   help="save triangle meshes instead of filtered clouds")
     p.add_argument("--no-z-filter", action="store_true")
     p.add_argument("--gt-poses", action="store_true",
                    help="dataset captured with ground-truth body poses "
@@ -79,6 +86,116 @@ def _cmd_reconstruct(args):
     for name, res in out.items():
         print(f"{name}: {len(res.points)} points from {res.num_frames} frames "
               f"-> {os.path.join(save_dir, name + '.ply')}")
+
+
+def _add_map_tools(sub):
+    p = sub.add_parser("check-frame", help="back-project one RGB-D frame")
+    p.add_argument("--depth", required=True)
+    p.add_argument("--color", default=None)
+    p.add_argument("--out", required=True)
+    p.add_argument("--voxel", type=float, default=0.01)
+    p.add_argument("--trunc", type=float, default=5.0)
+    p.add_argument("--config", default=None)
+    _add_device(p)
+
+    p = sub.add_parser("probe-depth", help="depth format/stats probe")
+    p.add_argument("path")
+    p.add_argument("--heat", default=None)
+
+    p = sub.add_parser("trajectory", help="camera trajectory markers")
+    p.add_argument("--poses", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--gt-poses", action="store_true")
+
+    p = sub.add_parser("hybrid-map", help="merge 2D map + 3D objects")
+    p.add_argument("--map-yaml", required=True)
+    p.add_argument("--map-pgm", required=True)
+    p.add_argument("--objects", required=True)
+    p.add_argument("--out", required=True)
+
+    p = sub.add_parser("merge-2d", help="selective 2D map merge")
+    p.add_argument("--old", required=True)
+    p.add_argument("--new", required=True)
+    p.add_argument("--regions", required=True, help='"x,y,w,h;x,y,w,h"')
+    p.add_argument("--out", required=True)
+
+
+def _cmd_check_frame(args):
+    from otslam_tpu_torch.core import io as tio
+    from otslam_tpu_torch.core.camera import PinholeIntrinsics
+    from otslam_tpu_torch.device import resolve_device
+    from otslam_tpu_torch.kernels.backproject import backproject_pointcloud
+    from otslam_tpu_torch.kernels.voxel import voxel_downsample
+
+    cfg = _load_cfg(args)
+    dev = resolve_device(args.device)
+    intr = PinholeIntrinsics.from_config(cfg.camera)
+    depth = tio.read_depth_png(args.depth, cfg.camera.depth_scale)
+    color = tio.read_color(args.color) if args.color else None
+    pc = backproject_pointcloud(
+        depth, color, intr, depth_trunc=args.trunc, device=dev)
+    if args.voxel > 0:
+        dpts, dcols, mask = voxel_downsample(
+            pc.points, args.voxel, mask=pc.mask, colors=pc.colors)
+        pts = dpts[mask].cpu().numpy()
+        cols = None if dcols is None else dcols[mask].cpu().numpy()
+    else:
+        pts, cols = pc.to_numpy()
+    tio.write_ply(args.out, pts, colors=cols)
+    print(f"{len(pts)} points -> {args.out}")
+
+
+def _cmd_probe_depth(args):
+    from otslam_tpu_torch.core import io as tio
+    from otslam_tpu_torch.utils.probes import depth_heat_image, depth_stats
+
+    cv2 = tio._cv2()
+    raw = None if cv2 is None else cv2.imread(args.path, cv2.IMREAD_UNCHANGED)
+    if raw is None:
+        raw = (tio.read_depth_png(args.path) * 1000).astype(np.uint16)
+    print(json.dumps(depth_stats(raw), indent=2))
+    if args.heat:
+        tio.write_color(args.heat,
+                        np.stack([depth_heat_image(raw)] * 3, axis=-1))
+        print(f"heat image -> {args.heat}")
+
+
+def _cmd_trajectory(args):
+    import glob
+
+    from otslam_tpu_torch.core import io as tio
+    from otslam_tpu_torch.core.se3 import T_FIX_GT, T_FIX_OPTICAL
+    from otslam_tpu_torch.utils.probes import trajectory_frames
+
+    poses = [tio.read_pose_txt(f)
+             for f in sorted(glob.glob(os.path.join(args.poses, "*.txt")))]
+    pts, cols = trajectory_frames(
+        poses, T_FIX_GT if args.gt_poses else T_FIX_OPTICAL)
+    tio.write_ply(args.out, pts, colors=cols)
+    print(f"{len(poses)} poses -> {args.out}")
+
+
+def _cmd_hybrid_map(args):
+    from otslam_tpu_torch.mapping.hybrid import hybrid_map_from_files
+
+    pts, cols = hybrid_map_from_files(args.map_yaml, args.map_pgm,
+                                      args.objects, args.out)
+    print(f"hybrid map: {len(pts)} points -> {args.out}")
+
+
+def _cmd_merge_2d(args):
+    from otslam_tpu_torch.core import io as tio
+    from otslam_tpu_torch.mapping.merge import selective_merge
+
+    old = tio.read_pgm(args.old)
+    new = tio.read_pgm(args.new)
+    regions = []
+    for part in args.regions.split(";"):
+        x, y, w, h = (int(v) for v in part.split(","))
+        regions.append((x, y, w, h))
+    out = selective_merge(old, new, regions)
+    tio.write_pgm(args.out, out)
+    print(f"merged {len(regions)} regions -> {args.out}")
 
 
 def _cmd_eval(args):
@@ -226,6 +343,7 @@ def main(argv=None):
                                  description="OTSLAM on PyTorch/CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_reconstruct(sub)
+    _add_map_tools(sub)
 
     p = sub.add_parser("eval", help="accuracy/completeness vs GT")
     p.add_argument("--map", required=True)
@@ -239,8 +357,10 @@ def main(argv=None):
     _add_mission(sub)
 
     args = ap.parse_args(argv)
-    {"reconstruct": _cmd_reconstruct, "eval": _cmd_eval,
-     "mission": _cmd_mission}[args.cmd](args)
+    {"reconstruct": _cmd_reconstruct, "check-frame": _cmd_check_frame,
+     "probe-depth": _cmd_probe_depth, "trajectory": _cmd_trajectory,
+     "hybrid-map": _cmd_hybrid_map, "merge-2d": _cmd_merge_2d,
+     "eval": _cmd_eval, "mission": _cmd_mission}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -3,16 +3,17 @@
 The reference's process boundaries are all files (SURVEY.md §5 checkpoint):
   * capture dataset: color/<label>_<n>.jpg, depth/<label>_<n>.png (uint16 mm),
     poses/<label>_<n>.txt (4x4 map->camera matrix)   [scanner_node.cpp:268-299]
+  * 2D maps: PGM + YAML (slam_toolbox format)        [hybrid_map.py:31-38]
   * 3D objects / hybrid maps: .ply point clouds      [reconstruct_rgbd_filter.py:140]
 
-Counterpart of otslam_tpu/core/io.py for these two (the 2D map PGM + YAML
-formats come with the map tools, ROADMAP A). PLY in both binary and ascii,
-with point clouds (xyz[+rgb][+normals]) and triangle meshes; no Open3D.
+Counterpart of otslam_tpu/core/io.py: PLY in both binary and ascii, with
+point clouds (xyz[+rgb][+normals]) and triangle meshes; no Open3D.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Optional, Tuple
 
 import numpy as np
@@ -204,6 +205,63 @@ def _extract_vertex_dict(out: dict, rec: dict, names: list) -> None:
                          / 255.0).astype(np.float32)
     if all(c in names for c in ("nx", "ny", "nz")):
         out["normals"] = np.stack([rec["nx"], rec["ny"], rec["nz"]], axis=-1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# PGM + map YAML (slam_toolbox conventions)
+# ---------------------------------------------------------------------------
+
+def read_pgm(path: str) -> np.ndarray:
+    """Read a (P2 ascii or P5 binary) PGM image as uint8 (row 0 = top)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    tokens = []
+    i = 0
+    while len(tokens) < 4:
+        m = re.match(rb"\s*(#[^\n]*\n|\S+)", data[i:])
+        if m is None:
+            raise ValueError(f"{path}: malformed PGM header")
+        tok = m.group(1)
+        i += m.end()
+        if not tok.startswith(b"#"):
+            tokens.append(tok)
+    magic, w, h, maxval = tokens[0], int(tokens[1]), int(tokens[2]), int(tokens[3])
+    if magic == b"P5":
+        # exactly one whitespace byte separates maxval from the binary raster
+        img = np.frombuffer(data, dtype=np.uint8, count=w * h, offset=i + 1)
+        return img.reshape(h, w).copy()
+    elif magic == b"P2":
+        vals = np.asarray(data[i:].split()[: w * h], dtype=np.uint8)
+        return vals.reshape(h, w)
+    raise ValueError(f"{path}: unsupported PGM magic {magic!r}")
+
+
+def write_pgm(path: str, img: np.ndarray) -> None:
+    img = np.asarray(img, dtype=np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(f"P5\n{img.shape[1]} {img.shape[0]}\n255\n".encode("ascii"))
+        f.write(img.tobytes())
+
+
+def read_map_yaml(path: str) -> dict:
+    import yaml  # imported on first use, like the image codecs
+    with open(path, "r") as f:
+        return yaml.safe_load(f)
+
+
+def write_map_yaml(path: str, image: str, resolution: float,
+                   origin: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+                   negate: int = 0, occupied_thresh: float = 0.65,
+                   free_thresh: float = 0.196) -> None:
+    import yaml
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(
+            {"image": image, "resolution": float(resolution),
+             "origin": [float(o) for o in origin], "negate": negate,
+             "occupied_thresh": occupied_thresh, "free_thresh": free_thresh},
+            f, default_flow_style=None)
 
 
 # ---------------------------------------------------------------------------

@@ -112,8 +112,24 @@ def scenario_gt(name: str, total: int = 50_000, seed: int = 0) -> np.ndarray:
     return sample_scene_surface(scenes[name](), total, seed)
 
 
-# The mesh-asset GT protocol (load_and_scale_gt, assemble_mesh_gt) needs
-# core/mesh_io.py and arrives with it.
+# --- real-format GT assembly (mesh assets, reference protocol) -------------
+#
+# Mirrors eval_table_chair.py:66-88 / eval_cone.py:27-49: load a DAE/OBJ/STL
+# mesh, sample N surface points, apply per-axis scale, then rotate (degrees,
+# XYZ euler about the origin) and translate — in exactly that order.
+
+def load_and_scale_gt(filename: str, scale_factors, n: int = 50_000,
+                      seed: int = 0, unit_scale: float = 1.0) -> np.ndarray:
+    """Mesh file -> (n, 3) sampled + scaled GT points.
+
+    Matches the reference loader (eval_table_chair.py:66-80): sample first,
+    then multiply by unit_scale and the per-axis scale_factors.
+    """
+    from otslam_tpu_torch.core.mesh_io import load_mesh, sample_mesh_surface
+    mesh = load_mesh(filename)
+    pts = sample_mesh_surface(mesh, n, seed) * unit_scale
+    return (pts * np.asarray(scale_factors, np.float64)).astype(np.float32)
+
 
 def apply_transform(points: np.ndarray, rot_deg, trans) -> np.ndarray:
     """Rotate (XYZ euler, degrees, about the origin) then translate —
@@ -128,3 +144,22 @@ def apply_transform(points: np.ndarray, rot_deg, trans) -> np.ndarray:
     R = Rz @ Ry @ Rx        # o3d get_rotation_matrix_from_xyz convention
     return (points.astype(np.float64) @ R.T
             + np.asarray(trans, np.float64)).astype(np.float32)
+
+
+def assemble_mesh_gt(assets, n_per: int = 50_000, seed: int = 0,
+                     unit_scale: float = 1.0,
+                     global_rot=(0.0, 0.0, 0.0),
+                     global_trans=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """Full reference GT protocol over a list of placed mesh assets.
+
+    assets: iterable of (path, scale_factors, rot_deg, trans) tuples —
+    one per scene object, like the TABLE/CHAIR_1..4 blocks of
+    eval_table_chair.py:23-33. A final global offset (the per-method
+    GT_OFFSET_* alignment, :40-47) applies to the combined cloud.
+    """
+    parts = []
+    for k, (path, scale, rot, trans) in enumerate(assets):
+        pts = load_and_scale_gt(path, scale, n_per, seed + k, unit_scale)
+        parts.append(apply_transform(pts, rot, trans))
+    gt = np.concatenate(parts) if parts else np.zeros((0, 3), np.float32)
+    return apply_transform(gt, global_rot, global_trans)

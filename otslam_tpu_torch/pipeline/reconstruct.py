@@ -1,8 +1,9 @@
 """Per-object 3D reconstruction pipelines (counterpart of
 otslam_tpu/pipeline/reconstruct.py).
 
-* ``reconstruct_frames``  — the post-load body: fuse a frame batch, extract
-  the surface, sample N points, remove the floor (Z < 0.03 m).
+* ``reconstruct_frames``  — the post-load body: fuse a frame batch, then
+  either extract the surface, sample N points and remove the floor
+  (Z < 0.03 m), or extract a welded marching-tetrahedra mesh.
 * ``reconstruct_object``  — reconstruct_rgbd_filter.py: load one object's
   frames from a capture dataset, then ``reconstruct_frames``; saves a PLY.
 * ``reconstruct_range``   — multi_reconstruct_rgbd_filter.py: explicit frame
@@ -31,6 +32,7 @@ from otslam_tpu_torch.config import ReconstructionConfig
 from otslam_tpu_torch.core import io as tio
 from otslam_tpu_torch.core.camera import PinholeIntrinsics
 from otslam_tpu_torch.device import resolve_device, to_f32
+from otslam_tpu_torch.kernels.marching import extract_mesh
 from otslam_tpu_torch.kernels.sampling import resample_points
 from otslam_tpu_torch.kernels.tsdf import (
     extract_surface_points, integrate_frames, make_volume)
@@ -42,6 +44,7 @@ from otslam_tpu_torch.pipeline.refine import (
     refine_trajectory, refine_trajectory_f2m, refine_trajectory_pgo)
 
 BACKENDS = ("pallas", "sparse", "dense")
+OUTPUTS = ("cloud", "mesh")
 REFINERS = {"icp": refine_trajectory, "f2m": refine_trajectory_f2m,
             "pgo": refine_trajectory_pgo}
 
@@ -166,6 +169,8 @@ class ReconstructionResult:
     raw_surface_count: int
     # (N, 4, 4) world->camera poses the fusion used (refined or as given)
     extrinsics: np.ndarray | None = None
+    # (F, 3) int32 triangles over `points` for mesh output, else None
+    faces: np.ndarray | None = None
 
 
 def fuse_frames(depths, colors, extrinsics, intr: PinholeIntrinsics,
@@ -246,22 +251,23 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
                        timings: dict | None = None) -> ReconstructionResult:
     """The per-object pipeline after dataset loading: (auto-sized volume)
     -> (pose refinement) -> fusion -> surface extraction, sampling and
-    floor filter.
+    floor filter, or a welded mesh.
 
     batch holds host arrays, as CaptureDataset.load_object returns them;
-    the work runs on `device`. auto_origin=True centers (and, unless
-    auto_dims is False, sizes) the volume on the observed geometry.
+    the work runs on `device`. output='cloud' is the filtered sampled
+    point cloud; output='mesh' the marching-tetrahedra mesh, welded on the
+    host, with its faces and area-weighted vertex normals (no sampling or
+    floor filter). auto_origin=True centers (and, unless auto_dims is
+    False, sizes) the volume on the observed geometry.
     refine: 'none' trusts the dataset poses (the reference trusts TF),
     'icp' chains frame-to-frame ICP corrections, 'f2m' tracks each frame
     against the fused TSDF, 'pgo' adds loop-closure edges and a pose-graph
     solve; only the refined extrinsics feed the main fusion.
     `timings`, when given, receives the seconds of each stage
-    ("auto_volume", "refine", "fuse", "extract"), each ending in a device
-    sync."""
-    if output != "cloud":
-        raise NotImplementedError(
-            f"output={output!r}: mesh output needs kernels/marching.py, "
-            "which the port has not reached yet (ROADMAP M4, marching)")
+    ("auto_volume", "refine", "fuse", "extract"; a mesh's "extract" holds
+    the extraction and the weld), each ending in a device sync."""
+    if output not in OUTPUTS:
+        raise ValueError(f"unknown output {output!r}")
     if refine != "none" and refine not in REFINERS:
         raise ValueError(f"unknown refine {refine!r}")
     cfg = cfg or ReconstructionConfig()
@@ -282,12 +288,23 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
     vol = fuse_frames(batch.depths, batch.colors, batch.extrinsics, intr,
                       cfg, backend, densify=False, device=dev)
     t0 = _stage(timings, "fuse", t0, dev)
-    res = extract_filtered_cloud(vol, cfg, seed=seed, z_filter=z_filter,
-                                 draws=draws)
+    if output == "mesh":
+        verts, faces, cols, normals = extract_mesh(vol)
+        res = ReconstructionResult(verts, cols, normals, 0, len(verts),
+                                   faces=faces)
+    else:
+        res = extract_filtered_cloud(vol, cfg, seed=seed, z_filter=z_filter,
+                                     draws=draws)
     _stage(timings, "extract", t0, dev)
     res.num_frames = len(batch.names)
     res.extrinsics = np.asarray(batch.extrinsics)
     return res
+
+
+def _save(save_dir: str | None, name: str, res: ReconstructionResult):
+    if save_dir is not None:
+        tio.write_ply(os.path.join(save_dir, f"{name}.ply"), res.points,
+                      colors=res.colors, normals=res.normals, faces=res.faces)
 
 
 def reconstruct_object(ds: CaptureDataset, obj_name: str,
@@ -303,16 +320,16 @@ def reconstruct_object(ds: CaptureDataset, obj_name: str,
                        ) -> ReconstructionResult:
     """Full per-object pipeline; writes <save_dir>/<obj_name>.ply if asked.
 
-    output='cloud' is the filtered sampled point cloud
-    (reconstruct_rgbd_filter.py); see `reconstruct_frames` for the rest."""
+    output='cloud': filtered sampled point cloud (reconstruct_rgbd_filter.py);
+    output='mesh': welded triangle mesh with vertex normals, saved with its
+    faces (reconstruct_rgbd.py's extract_triangle_mesh +
+    compute_vertex_normals); see `reconstruct_frames` for the rest."""
     batch = ds.load_object(obj_name, frame_numbers)
     intr = PinholeIntrinsics.from_config(ds.camera)
     res = reconstruct_frames(batch, intr, cfg, backend, z_filter, seed,
                              output, auto_origin, refine, auto_dims, device,
                              draws)
-    if save_dir is not None:
-        tio.write_ply(os.path.join(save_dir, f"{obj_name}.ply"),
-                      res.points, colors=res.colors, normals=res.normals)
+    _save(save_dir, obj_name, res)
     return res
 
 

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's paths goes, on one CUDA GPU.
 
-    python3 profile_paths.py [reconstruct] [registration] [mission]
+    python3 profile_paths.py [reconstruct] [mesh] [registration] [mission]
 
-Drives each named path (all three by default) as chip_smoke.py's phases 4,
-6 and 8 drive it: the 64-frame VGA capture of the cardboard room through
-reconstruct_frames and the eval; that capture with drifted poses through
+Drives each named path (all four by default) as chip_smoke.py's phases 4,
+4b, 6 and 8 drive it: the 64-frame VGA capture of the cardboard room through
+reconstruct_frames and the eval; the same with mesh output (the PLY with
+its faces, the eval of the vertices above the floor); that capture with
+drifted poses through
 refine="icp" and "pgo", then a 1440-beam scan localization; the mission CLI
 with --removed --localizer --perception-batch 8 for 300 ticks, then
 reconstruct_all and the eval. Each path runs three times: a warm-up (kernel
@@ -19,17 +21,21 @@ the three longest launches, which tell a path's shapes apart), the top
 device items by total
 time, and the host's cumulative seconds in the path's stages. The fusion
 schedule's passes (`PASSES`: the classification, the depth mips, the
-colour pack) each run inside a profiler range, so the report also gives
-each pass's calls, host milliseconds and the device milliseconds of the
-torch ops launched inside it; the trace does not tie the repo's own
-kernels (launched through ctypes) to a range, so those count by name
-(`KERNELS`). Prints the card's name and power limit first (nvidia-smi).
-Needs a CUDA device. All three paths take ~10 minutes on an H100, most of
-it the profiler's reading of registration's ~740 000 launches.
+colour pack) and the mesh extraction's steps (`MESH_STEPS`: the whole
+extract_mesh, its capacity sizing, the soup, the host weld) each run
+inside a profiler range, so the report also gives each range's calls,
+host milliseconds, kernel launches issued inside it and the device
+milliseconds of the torch ops launched inside it; the trace does not tie
+the repo's own kernels (launched through ctypes) to a range, so those
+count by name (`KERNELS`). Prints the card's name and power limit first
+(nvidia-smi). Needs a CUDA device. All four paths take ~10 minutes on an
+H100, most of it the profiler's reading of registration's ~740 000
+launches.
 """
 
 from __future__ import annotations
 
+import bisect
 import cProfile
 import functools
 import io
@@ -41,16 +47,21 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PATHS = ("reconstruct", "registration", "mission")
+PATHS = ("reconstruct", "mesh", "registration", "mission")
 # the fusion schedule's passes before K1, by function name: K2's wrapper,
 # the depth mips (the card's pass and the plain torch pyramid) and the
 # colour pack (tsdf_cuda's wrapper and the plain tsdf_block.pack_rgb)
 PASSES = ("classify_blocks", "depth_mips", "_depth_mips", "pack_rgb")
+# the mesh extraction's steps (kernels/marching.py), by function name
+MESH_STEPS = ("extract_mesh", "auto_mesh_block_config",
+              "extract_mesh_soup_block", "_weld_mesh")
 # each path's stages, by function name (cProfile cumulative seconds)
 STAGES = {
     "reconstruct": ("reconstruct_frames", "auto_volume_config",
                     "fuse_frames", "extract_filtered_cloud", "evaluate_map")
     + PASSES,
+    "mesh": ("reconstruct_frames", "auto_volume_config", "fuse_frames",
+             "write_ply", "read_ply", "evaluate_map") + MESH_STEPS + PASSES,
     "registration": ("reconstruct_frames", "refine_trajectory",
                      "refine_trajectory_pgo", "_annealed_icp",
                      "detect_loop_closures", "track_frame_to_tsdf",
@@ -66,20 +77,20 @@ STAGES = {
 KERNELS = ("mips_tile_kernel", "mips_finish_kernel", "classify_kernel",
            "pack_rgb_kernel", "fuse_kernel", "nn_kernel", "nn_window_kernel",
            "nn_merge_kernel", "raycast_kernel")
-RANGE = "pass:"   # prefix of the profiler ranges around the PASSES
+RANGE = "pass:"   # prefix of the profiler ranges around PASSES, MESH_STEPS
 
 
 def wrap_passes() -> None:
-    """Run every function named in PASSES, wherever an otslam_tpu_torch
-    module holds it (its own module or one that imported it), inside a
-    torch.profiler range `pass:<module>.<name>`. The wrapper shares the
-    function's attributes, so a launch counter still counts."""
+    """Run every function named in PASSES or MESH_STEPS, wherever an
+    otslam_tpu_torch module holds it (its own module or one that imported
+    it), inside a torch.profiler range `pass:<module>.<name>`. The wrapper
+    shares the function's attributes, so a launch counter still counts."""
     import torch
     wrapped = {}
     for mod_name, mod in list(sys.modules.items()):
         if not mod_name.startswith("otslam_tpu_torch"):
             continue
-        for name in PASSES:
+        for name in PASSES + MESH_STEPS:
             fn = getattr(mod, name, None)
             if fn is None or not callable(fn) or not getattr(
                     fn, "__module__", "").startswith("otslam_tpu_torch"):
@@ -143,15 +154,26 @@ def profile_path(name: str, run) -> None:
                  f"{each[n // 2]:.4f}, max {each[-1]:.4f}; the "
                  f"{min(n, 3)} longest {sum(each[-3:]):.4f} ms)"
                  if n else ""))
+    # kernel launches by thread, by start time, to count those in a range
+    starts: dict = {}
+    for e in events:
+        if e.name == "cudaLaunchKernel":
+            starts.setdefault(e.thread, []).append(e.time_range.start)
+    for v in starts.values():
+        v.sort()
     spans: dict = {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name.startswith(RANGE):
-            n, host, dev = spans.get(e.name, (0, 0.0, 0.0))
+            n, host, dev, nl = spans.get(e.name, (0, 0.0, 0.0, 0))
+            ts = starts.get(e.thread, [])
+            inside = (bisect.bisect_right(ts, e.time_range.end)
+                      - bisect.bisect_left(ts, e.time_range.start))
             spans[e.name] = (n + 1, host + e.cpu_time_total * 1e-3,
-                             dev + e.device_time_total * 1e-3)
-    for label, (n, host, dev) in sorted(spans.items()):
+                             dev + e.device_time_total * 1e-3, nl + inside)
+    for label, (n, host, dev, nl) in sorted(spans.items()):
         print(f"  pass {label[len(RANGE):]}: {n} calls, host {host:.4f} ms,"
-              f" device {dev:.4f} ms (torch ops launched inside it)")
+              f" {nl} launches, device {dev:.4f} ms (torch ops launched "
+              f"inside it)")
     print("  top device items (total ms, count):")
     for key, (n, ms) in ranked[:12]:
         print(f"  {ms:10.4f} ms {n:7d}x  {key[:90]}")
@@ -177,6 +199,7 @@ def main(argv: list[str]) -> int:
         return 2
     import chip_smoke as cs
     import otslam_tpu_torch.kernels.tsdf_cuda  # noqa: F401 (for wrap_passes)
+    import otslam_tpu_torch.pipeline.reconstruct  # noqa: F401 (the same)
     from otslam_tpu_torch.config import ReconstructionConfig
     from otslam_tpu_torch.eval.scenarios import scenario_gt
     wrap_passes()
@@ -195,6 +218,8 @@ def main(argv: list[str]) -> int:
         runs = {
             "reconstruct": lambda tag: cs.phase_reconstruct(
                 batch, intr, cfg, dev, gt),
+            "mesh": lambda tag: cs.phase_mesh_path(batch, intr, cfg, dev,
+                                                   gt),
             "registration": lambda tag: cs.phase_registration(
                 batch, intr, cfg, dev, gt),
             "mission": lambda tag: cs.phase_mission(

@@ -74,7 +74,11 @@ def test_import_and_cli_help_stay_off_jax():
     assert {"otslam_tpu_torch.sim.runner",
             "otslam_tpu_torch.mapping.perception",
             "otslam_tpu_torch.kernels.raycast",
-            "otslam_tpu_torch.mission.tracker"} <= set(mods)
+            "otslam_tpu_torch.mission.tracker",
+            "otslam_tpu_torch.kernels.marching",
+            "otslam_tpu_torch.kernels.voxel",
+            "otslam_tpu_torch.mapping.hybrid",
+            "otslam_tpu_torch.utils.profiling"} <= set(mods)
     proc = run_py("import importlib, sys\n"
                   f"for m in {mods!r}: importlib.import_module(m)\n"
                   "print(sorted(m for m in sys.modules if m.split('.')[0] "
@@ -136,15 +140,20 @@ for i in range(8):
     assert not r["jax"] and r["launches"] == [0] * 7
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(capsys):
+    from otslam_tpu_torch import cli
     from otslam_tpu_torch.config import ReconstructionConfig
     from otslam_tpu_torch.pipeline.reconstruct import (fuse_frames,
                                                        reconstruct_frames)
     with pytest.raises(ValueError, match="backend"):
         fuse_frames([], [], [], None, ReconstructionConfig(), backend="xla",
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M4"):
-        reconstruct_frames(None, None, output="mesh", device="cpu")
+    # the headline report is not ported yet: its command is refused
+    with pytest.raises(SystemExit):
+        cli.main(["headline", "--workdir", "unused"])
+    assert "invalid choice: 'headline'" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="output"):
+        reconstruct_frames(None, None, output="voxels", device="cpu")
     with pytest.raises(ValueError, match="refine"):
         reconstruct_frames(None, None, refine="slam", device="cpu")
 
@@ -200,6 +209,7 @@ def test_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
 ENTRY_POINTS = {
     "otslam_tpu_torch.pipeline.reconstruct": [
         "fuse_frames", "reconstruct_frames", "reconstruct_object"],
+    "otslam_tpu_torch.kernels.backproject": ["backproject_pointcloud"],
     "otslam_tpu_torch.eval.metrics": ["evaluate_map"],
     "otslam_tpu_torch.pipeline.refine": [
         "refine_trajectory", "refine_trajectory_f2m", "detect_loop_closures",
@@ -222,11 +232,13 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from otslam_tpu_torch.device import resolve_device
+    from otslam_tpu_torch.core.pointcloud import PointCloud
     from otslam_tpu_torch.kernels.tsdf import TSDFVolume
     from otslam_tpu_torch.kernels.tsdf_block import BlockTSDFVolume
     fns = [getattr(importlib.import_module(mod), name)
            for mod, names in ENTRY_POINTS.items() for name in names]
-    fns += [TSDFVolume.from_numpy, BlockTSDFVolume.from_numpy]
+    fns += [TSDFVolume.from_numpy, BlockTSDFVolume.from_numpy,
+            PointCloud.from_numpy]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == \
             "cuda", fn.__qualname__
@@ -255,17 +267,27 @@ def test_without_cuda_the_defaults_raise():
         pytest.skip("this machine has CUDA")
     import numpy as np
 
+    from otslam_tpu_torch import cli
+    from otslam_tpu_torch.core.camera import PinholeIntrinsics
+    from otslam_tpu_torch.core.pointcloud import PointCloud
     from otslam_tpu_torch.device import resolve_device
+    from otslam_tpu_torch.kernels.backproject import backproject_pointcloud
     from otslam_tpu_torch.mapping.virtual_scan import VirtualScanner
     from otslam_tpu_torch.sim.runner import MissionRunner
     from otslam_tpu_torch.sim.sensors import render_lidar
     from otslam_tpu_torch.sim.world import cardboard_room
     with pytest.raises(RuntimeError, match="'cuda:0' requested but CUDA"):
         resolve_device(None)
+    intr = PinholeIntrinsics(4, 3, 2.0, 2.0, 2.0, 1.5)
     for call in (lambda: render_lidar(cardboard_room(), 0.0, 0.0, 0.0,
                                       np.zeros(4, np.float32)),
                  lambda: VirtualScanner(),
                  lambda: MissionRunner(cardboard_room(), cardboard_room(),
-                                       "unused")):
+                                       "unused"),
+                 lambda: backproject_pointcloud(np.ones((3, 4)), None, intr),
+                 lambda: PointCloud.from_numpy(np.zeros((2, 3))),
+                 # check-frame's default device is the card too
+                 lambda: cli.main(["check-frame", "--depth", "unused.png",
+                                   "--out", "unused.ply"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
