@@ -8,6 +8,9 @@
   merge-2d      fusion/2d_selective_merge.py (explicit regions, headless)
   eval          eval/eval_*.py (analytic GT scenarios or a GT ply)
   mission       closed-loop simulated mission (the Gazebo-equivalent run)
+  capture       rgbd_capture_node (one rendered frame into a dataset)
+  report        eval/result_plot.py (summary table + bar charts)
+  headline      the selective-vs-dense size/accuracy report
 
 Same flags as the JAX package's subcommands, plus ``--device`` where a
 command runs on a device. Run as
@@ -28,6 +31,16 @@ def _add_device(p):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu); a CUDA "
                         "device without CUDA is an error, not a CPU run")
+
+
+SCENARIOS = ("cardboard", "cone", "table_chair", "full")
+
+
+def _scene_fn(name: str):
+    from otslam_tpu_torch.sim import world
+    return {"cardboard": world.cardboard_room, "cone": world.cone_room,
+            "table_chair": world.table_chair_room,
+            "full": world.full_room}[name]
 
 
 def _add_reconstruct(sub):
@@ -217,7 +230,7 @@ def _cmd_eval(args):
 def _add_mission(sub):
     p = sub.add_parser("mission", help="run a closed-loop simulated mission")
     p.add_argument("--scenario", default="cardboard",
-                   choices=["cardboard", "cone", "table_chair", "full"])
+                   choices=SCENARIOS)
     p.add_argument("--workdir", required=True)
     p.add_argument("--start", default="-2.0,-2.0,0.5")
     p.add_argument("--max-ticks", type=int, default=300)
@@ -258,12 +271,9 @@ def mission_runner(args, workdir: str, device, scripted: bool = False):
 
     from otslam_tpu_torch.config import OTSLAMConfig, TrackerConfig
     from otslam_tpu_torch.sim.runner import MissionRunner
-    from otslam_tpu_torch.sim.world import (
-        Box, cardboard_room, cone_room, full_room, table_chair_room)
+    from otslam_tpu_torch.sim.world import Box
 
-    scenes = {"cardboard": cardboard_room, "cone": cone_room,
-              "table_chair": table_chair_room, "full": full_room}
-    world = scenes[args.scenario]()
+    world = _scene_fn(args.scenario)()
     # --removed: the saved 2D map knows an object reality no longer has —
     # the diff pipeline then reports REMOVED cells and the mission visits
     # the removed-object check points (diff_node.cpp:131-158 semantics)
@@ -330,6 +340,88 @@ def _cmd_mission(args):
     print(json.dumps(out))
 
 
+def _add_eval_tools(sub):
+    p = sub.add_parser("capture", help="manual RGB-D capture from a scenario")
+    p.add_argument("--scenario", default="cardboard", choices=SCENARIOS)
+    p.add_argument("--workdir", required=True)
+    p.add_argument("--label", default="Object_0")
+    p.add_argument("--pose", required=True, help="x,y,yaw")
+    p.add_argument("--height", type=float, default=0.3)
+    p.add_argument("--config", default=None)
+    _add_device(p)
+
+    p = sub.add_parser("report", help="summary table + bar charts")
+    p.add_argument("--results", required=True,
+                   help='"Name,acc_cm,comp_cm;Name2,acc,comp"')
+    p.add_argument("--plot", default=None)
+    p.add_argument("--vs-reference", action="store_true")
+
+    p = sub.add_parser("headline",
+                       help="selective-vs-dense size/accuracy report")
+    p.add_argument("--workdir", required=True)
+    p.add_argument("--scenario", default="cardboard", choices=SCENARIOS)
+    p.add_argument("--frames", type=int, default=12)
+    p.add_argument("--room-frames", type=int, default=48)
+    p.add_argument("--objects-dir", default=None,
+                   help="use these reconstructed object PLYs (e.g. a "
+                        "mission dataset's 3d_reconst/) as the selective "
+                        "map instead of synthesizing capture circles — "
+                        "the report is then computed from mission-captured "
+                        "data")
+    _add_device(p)
+
+
+def _cmd_capture(args):
+    """Manual RGB-D capture (the rgbd_capture_node equivalent, headless):
+    render one frame from an explicit pose in a named scenario and append it
+    to a dataset."""
+    from otslam_tpu_torch.core.camera import PinholeIntrinsics
+    from otslam_tpu_torch.core.se3 import T_FIX_GT, T_FIX_OPTICAL, se3
+    from otslam_tpu_torch.pipeline.dataset import CaptureDataset
+    from otslam_tpu_torch.sim.sensors import render_rgbd
+
+    scene = _scene_fn(args.scenario)()
+    cfg = _load_cfg(args)
+    intr = PinholeIntrinsics.from_config(cfg.camera)
+    x, y, yaw = (float(v) for v in args.pose.split(","))
+    R = np.eye(3)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R[:2, :2] = [[c, -s], [s, c]]
+    optical = se3(R, [x, y, args.height]) @ T_FIX_GT
+    depth, color = render_rgbd(scene, optical, intr,
+                               far=cfg.camera.depth_max, device=args.device)
+    ds = CaptureDataset(args.workdir, cfg.camera)
+    n = ds.save_frame(args.label, color.cpu().numpy().astype(np.uint8),
+                      depth.cpu().numpy(), optical @ T_FIX_OPTICAL.T)
+    print(f"captured {args.label}_{n} at ({x:.2f},{y:.2f},{yaw:.2f})")
+
+
+def _cmd_report(args):
+    from otslam_tpu_torch.eval.metrics import EvalMetrics
+    from otslam_tpu_torch.eval.report import (REFERENCE_RESULTS, plot_results,
+                                              print_summary_table)
+
+    results = {}
+    for part in args.results.split(";"):
+        name, acc, comp = part.split(",")
+        results[name] = EvalMetrics(float(acc), float(comp))
+    print_summary_table(results)
+    if args.plot:
+        plot_results(results, args.plot,
+                     baseline=REFERENCE_RESULTS if args.vs_reference else None)
+        print(f"plot -> {args.plot}")
+
+
+def _cmd_headline(args):
+    from otslam_tpu_torch.eval.headline import headline_report
+
+    rep = headline_report(args.workdir, scene_fn=_scene_fn(args.scenario),
+                          frames_per_object=args.frames,
+                          room_frames=args.room_frames,
+                          objects_dir=args.objects_dir, device=args.device)
+    print(json.dumps(rep, indent=2))
+
+
 def _load_cfg(args):
     from otslam_tpu_torch.config import OTSLAMConfig
     if getattr(args, "config", None):
@@ -348,19 +440,21 @@ def main(argv=None):
     p = sub.add_parser("eval", help="accuracy/completeness vs GT")
     p.add_argument("--map", required=True)
     p.add_argument("--scenario", default="cardboard",
-                   choices=["cardboard", "cone", "table_chair", "full"])
+                   choices=SCENARIOS)
     p.add_argument("--gt", default=None, help="GT ply (overrides scenario)")
     p.add_argument("--gt-samples", type=int, default=50000)
     p.add_argument("--icp", action="store_true",
                    help="ICP-align the GT onto the map first")
     _add_device(p)
     _add_mission(sub)
+    _add_eval_tools(sub)
 
     args = ap.parse_args(argv)
     {"reconstruct": _cmd_reconstruct, "check-frame": _cmd_check_frame,
      "probe-depth": _cmd_probe_depth, "trajectory": _cmd_trajectory,
      "hybrid-map": _cmd_hybrid_map, "merge-2d": _cmd_merge_2d,
-     "eval": _cmd_eval, "mission": _cmd_mission}[args.cmd](args)
+     "eval": _cmd_eval, "mission": _cmd_mission, "capture": _cmd_capture,
+     "report": _cmd_report, "headline": _cmd_headline}[args.cmd](args)
 
 
 if __name__ == "__main__":

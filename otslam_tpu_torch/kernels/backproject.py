@@ -20,7 +20,7 @@ import torch
 
 from otslam_tpu_torch.core.camera import PinholeIntrinsics
 from otslam_tpu_torch.core.pointcloud import PointCloud
-from otslam_tpu_torch.device import resolve_device
+from otslam_tpu_torch.device import resolve_device, to_f32
 from otslam_tpu_torch.kernels.tsdf import recip32
 
 
@@ -44,21 +44,22 @@ def backproject_pointcloud(depth_m, color_rgb, intr: PinholeIntrinsics,
     on `device`.
 
     depth_m: (H, W) meters, array or tensor. color_rgb: (H, W, 3) uint8
-    (scaled by 1/255) or float [0,1], or None. extrinsic_inv: optional
-    camera->world 4x4 that places the points in the world frame.
+    (scaled by 1/255) or float [0,1], array or tensor, or None.
+    extrinsic_inv: optional camera->world 4x4 that places the points in
+    the world frame.
     """
     dev = resolve_device(device)
-    d = filter_depth(torch.as_tensor(np.asarray(depth_m), dtype=torch.float32,
-                                     device=dev), depth_trunc)
+    d = filter_depth(to_f32(depth_m, dev), depth_trunc)
     pts, valid = backproject_depth(d, intr.pixel_rays(dev))
     pts = pts.reshape(-1, 3)
     cols = None
     if color_rgb is not None:
-        cols = torch.as_tensor(np.asarray(color_rgb), device=dev).reshape(-1, 3)
+        cols = (color_rgb.to(dev) if isinstance(color_rgb, torch.Tensor)
+                else torch.as_tensor(np.asarray(color_rgb), device=dev))
+        cols = cols.reshape(-1, 3)
         if cols.dtype == torch.uint8:
             cols = cols.to(torch.float32) * recip32(255.0)
     if extrinsic_inv is not None:
-        E = torch.as_tensor(np.asarray(extrinsic_inv), dtype=pts.dtype,
-                            device=dev)
+        E = to_f32(extrinsic_inv, dev)
         pts = pts @ E[:3, :3].T + E[:3, 3]
     return PointCloud(pts, cols, valid.reshape(-1))

@@ -39,7 +39,10 @@ import torch
 from otslam_tpu_torch.kernels import _build
 
 BIG = 3.0e38        # f32 "no valid destination" distance (nn._BIG)
-SRC_CHUNK = 4096    # source rows per step of the plain version
+SRC_CHUNK = 4096    # source rows per step of the plain version ...
+# ... and at most this many (source, destination) pairs a step: on the CPU
+# near its cache's size, on the card ~2 GB for each (rows, M) temporary
+CHUNK_PAIRS = {"cpu": 1 << 20, "cuda": SRC_CHUNK << 17}
 SRC_TILE = 256      # source rows per window (nn._SRC_TILE, a K3/K4 block)
 DST_CHUNK = 1024    # destination rows per window chunk (nn._DST_CHUNK)
 BLOCKS_PER_SM = 2   # K3/K4 split each tile's range below this many blocks
@@ -112,8 +115,11 @@ def nn_min_torch(src: torch.Tensor, dst: torch.Tensor,
     destinations count as BIG, ties keep the lowest index; no valid
     destination gives (BIG, 0)."""
     out_d, out_i = [], []
-    for s in range(0, src.shape[0], SRC_CHUNK):
-        a = src[s:s + SRC_CHUNK]
+    # rows are independent, so the step size changes no result
+    chunk = min(SRC_CHUNK, max(16, CHUNK_PAIRS[src.device.type]
+                               // max(dst.shape[0], 1)))
+    for s in range(0, src.shape[0], chunk):
+        a = src[s:s + chunk]
         dx = a[:, None, 0] - dst[None, :, 0]
         dy = a[:, None, 1] - dst[None, :, 1]
         dz = a[:, None, 2] - dst[None, :, 2]

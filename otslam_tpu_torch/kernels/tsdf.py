@@ -84,6 +84,14 @@ def recip32(x: float) -> float:
     return float(np.float32(1.0) / np.float32(x))
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of f32 tensors rounded once to f32, as the fused
+    multiply-add that XLA:CPU contracts such an expression into: the
+    product of two f32 values is exact in f64, and the f64 sum is rounded
+    to f32."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
 def _round_to_pixel(x: torch.Tensor, size: int) -> torch.Tensor:
     """Half-to-even rounding to an int32 pixel index (jnp.round semantics).
     Values are clamped to [-1, size] before the cast: every value outside

@@ -175,12 +175,15 @@ class ReconstructionResult:
 
 def fuse_frames(depths, colors, extrinsics, intr: PinholeIntrinsics,
                 cfg: ReconstructionConfig, backend: str = "pallas",
-                densify: bool = True, device="cuda"):
+                max_active: int | None = None, densify: bool = True,
+                device="cuda"):
     """Fuse a stacked frame batch into a TSDF volume on `device`.
 
     depths (N,H,W) meters, colors (N,H,W,3) [0,255], extrinsics (N,4,4)
-    world->camera, as arrays or tensors. densify=False keeps the block
-    backends in block form (extraction then runs on created blocks only)."""
+    world->camera, as arrays or tensors. max_active caps the block backends
+    at each frame's max_active lowest active block ids; None fuses every
+    active block. densify=False keeps the block backends in block form
+    (extraction then runs on created blocks only)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
@@ -191,7 +194,8 @@ def fuse_frames(depths, colors, extrinsics, intr: PinholeIntrinsics,
         return integrate_frames(make_volume(cfg.tsdf, dev, dtype), depths,
                                 colors, extrinsics, intr)
     vol = integrate_frames_sparse(make_block_volume(cfg.tsdf, dev), depths,
-                                  colors, extrinsics, intr)
+                                  colors, extrinsics, intr,
+                                  max_active=max_active)
     return block_to_dense(vol) if densify else vol
 
 

@@ -2,17 +2,21 @@
 """Where the time of the port's paths goes, on one CUDA GPU.
 
     python3 profile_paths.py [reconstruct] [mesh] [registration] [mission]
+                             [headline]
 
-Drives each named path (all four by default) as chip_smoke.py's phases 4,
-4b, 6 and 8 drive it: the 64-frame VGA capture of the cardboard room through
-reconstruct_frames and the eval; the same with mesh output (the PLY with
-its faces, the eval of the vertices above the floor); that capture with
-drifted poses through
+Drives each named path (all five by default) as chip_smoke.py's phases 4,
+4b, 6, 8 and 9c drive it: the 64-frame VGA capture of the cardboard room
+through reconstruct_frames and the eval; the same with mesh output (the PLY
+with its faces, the eval of the vertices above the floor); that capture
+with drifted poses through
 refine="icp" and "pgo", then a 1440-beam scan localization; the mission CLI
 with --removed --localizer --perception-batch 8 for 300 ticks, then
-reconstruct_all and the eval. Each path runs three times: a warm-up (kernel
-build and first-use costs), a timed run (its stage lines, host clock), and
-a run under torch.profiler (CPU and CUDA activities) and cProfile. For the
+reconstruct_all and the eval; headline_report at its defaults on the
+cardboard room (capture circle, fusion and cloud, the 48-frame dense
+sweep, its PLYs and voxel downsampling, the evals). Each path runs three
+times: a warm-up (kernel build and first-use costs), a timed run (its
+stage lines, host clock), and a run under torch.profiler (CPU and CUDA
+activities) and cProfile. For the
 profiled run it prints the wall seconds, the device busy time (the sum of
 its CUDA kernel and copy durations) and its share of the wall, the number
 of kernel launches, each of the repo's kernels with its launches and
@@ -28,7 +32,7 @@ host milliseconds, kernel launches issued inside it and the device
 milliseconds of the torch ops launched inside it; the trace does not tie
 the repo's own kernels (launched through ctypes) to a range, so those
 count by name (`KERNELS`). Prints the card's name and power limit first
-(nvidia-smi). Needs a CUDA device. All four paths take ~10 minutes on an
+(nvidia-smi). Needs a CUDA device. All five paths take ~10 minutes on an
 H100, most of it the profiler's reading of registration's ~740 000
 launches.
 """
@@ -47,7 +51,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PATHS = ("reconstruct", "mesh", "registration", "mission")
+PATHS = ("reconstruct", "mesh", "registration", "mission", "headline")
 # the fusion schedule's passes before K1, by function name: K2's wrapper,
 # the depth mips (the card's pass and the plain torch pyramid) and the
 # colour pack (tsdf_cuda's wrapper and the plain tsdf_block.pack_rgb)
@@ -72,6 +76,10 @@ STAGES = {
                 "render_lidar_path", "_estimate_pose", "_post_perception",
                 "_scan_action", "_grab_frames", "save_frame",
                 "reconstruct_all", "evaluate_map") + PASSES,
+    "headline": ("headline_report", "_capture_circle", "render_rgbd",
+                 "fuse_frames", "extract_filtered_cloud", "save_hybrid_map",
+                 "_room_sweep", "backproject_pointcloud", "write_ply",
+                 "voxel_downsample", "evaluate_map") + PASSES,
 }
 # the repo's CUDA kernels (csrc/), by their names in a trace
 KERNELS = ("mips_tile_kernel", "mips_finish_kernel", "classify_kernel",
@@ -224,6 +232,8 @@ def main(argv: list[str]) -> int:
                 batch, intr, cfg, dev, gt),
             "mission": lambda tag: cs.phase_mission(
                 dev, os.path.join(tmp, f"mission_{tag}")),
+            "headline": lambda tag: cs.phase_headline(
+                dev, os.path.join(tmp, f"headline_{tag}"), "cardboard"),
         }
         for name in paths:
             profile_path(name, runs[name])

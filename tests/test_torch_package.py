@@ -78,14 +78,21 @@ def test_import_and_cli_help_stay_off_jax():
             "otslam_tpu_torch.kernels.marching",
             "otslam_tpu_torch.kernels.voxel",
             "otslam_tpu_torch.mapping.hybrid",
-            "otslam_tpu_torch.utils.profiling"} <= set(mods)
+            "otslam_tpu_torch.utils.profiling",
+            "otslam_tpu_torch.kernels.cluster",
+            "otslam_tpu_torch.mapping.initial_mapping",
+            "otslam_tpu_torch.mapping.grid_mapper",
+            "otslam_tpu_torch.eval.baseline",
+            "otslam_tpu_torch.eval.report",
+            "otslam_tpu_torch.eval.headline"} <= set(mods)
     proc = run_py("import importlib, sys\n"
                   f"for m in {mods!r}: importlib.import_module(m)\n"
                   "print(sorted(m for m in sys.modules if m.split('.')[0] "
                   "in ('jax', 'otslam_tpu')))")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
-    for sub in ([], ["reconstruct"], ["eval"], ["mission"]):
+    for sub in ([], ["reconstruct"], ["eval"], ["mission"], ["capture"],
+                ["report"], ["headline"]):
         proc = run_py(CLI, *sub, "--help")
         assert "usage:" in proc.stdout
         assert not report(proc)["jax"]
@@ -148,10 +155,10 @@ def test_unported_options_raise(capsys):
     with pytest.raises(ValueError, match="backend"):
         fuse_frames([], [], [], None, ReconstructionConfig(), backend="xla",
                     device="cpu")
-    # the headline report is not ported yet: its command is refused
+    # the benchmark is not ported yet: its command is refused
     with pytest.raises(SystemExit):
-        cli.main(["headline", "--workdir", "unused"])
-    assert "invalid choice: 'headline'" in capsys.readouterr().err
+        cli.main(["bench"])
+    assert "invalid choice: 'bench'" in capsys.readouterr().err
     with pytest.raises(ValueError, match="output"):
         reconstruct_frames(None, None, output="voxels", device="cpu")
     with pytest.raises(ValueError, match="refine"):
@@ -224,6 +231,10 @@ ENTRY_POINTS = {
     "otslam_tpu_torch.mapping.change_detect": ["ChangeDetector"],
     "otslam_tpu_torch.mapping.object_filter": ["WallProximityFilter"],
     "otslam_tpu_torch.sim.runner": ["MissionRunner"],
+    "otslam_tpu_torch.mapping.grid_mapper": ["GridMapper"],
+    "otslam_tpu_torch.mapping.initial_mapping": ["LidarClusterClassifier"],
+    "otslam_tpu_torch.eval.baseline": ["dense_room_reconstruction"],
+    "otslam_tpu_torch.eval.headline": ["headline_report"],
 }
 
 
@@ -262,7 +273,7 @@ def test_entry_points_default_to_the_card():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_without_cuda_the_defaults_raise():
+def test_without_cuda_the_defaults_raise(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
     import numpy as np
@@ -271,7 +282,12 @@ def test_without_cuda_the_defaults_raise():
     from otslam_tpu_torch.core.camera import PinholeIntrinsics
     from otslam_tpu_torch.core.pointcloud import PointCloud
     from otslam_tpu_torch.device import resolve_device
+    from otslam_tpu_torch.eval.baseline import dense_room_reconstruction
+    from otslam_tpu_torch.eval.headline import headline_report
     from otslam_tpu_torch.kernels.backproject import backproject_pointcloud
+    from otslam_tpu_torch.mapping.grid_mapper import GridMapper
+    from otslam_tpu_torch.mapping.initial_mapping import \
+        LidarClusterClassifier
     from otslam_tpu_torch.mapping.virtual_scan import VirtualScanner
     from otslam_tpu_torch.sim.runner import MissionRunner
     from otslam_tpu_torch.sim.sensors import render_lidar
@@ -286,8 +302,19 @@ def test_without_cuda_the_defaults_raise():
                                        "unused"),
                  lambda: backproject_pointcloud(np.ones((3, 4)), None, intr),
                  lambda: PointCloud.from_numpy(np.zeros((2, 3))),
-                 # check-frame's default device is the card too
+                 lambda: GridMapper(),
+                 lambda: LidarClusterClassifier(),
+                 lambda: dense_room_reconstruction(
+                     np.ones((1, 3, 4)), np.ones((1, 3, 4, 3)),
+                     np.eye(4)[None], intr, (0, 1, 0, 1, 0, 1)),
+                 lambda: headline_report(str(tmp_path / "headline")),
+                 # the CLI commands' default device is the card too
                  lambda: cli.main(["check-frame", "--depth", "unused.png",
-                                   "--out", "unused.ply"])):
+                                   "--out", "unused.ply"]),
+                 lambda: cli.main(["capture", "--workdir",
+                                   str(tmp_path / "ds"), "--pose", "0,0,0"]),
+                 lambda: cli.main(["headline", "--workdir",
+                                   str(tmp_path / "headline")])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+    assert not list(tmp_path.iterdir())

@@ -213,6 +213,34 @@ class TestBlockFusion:
         lost = (free.weight.numpy() > 0) & (np.asarray(jvol.weight) == 0)
         assert lost.sum() > 1000
 
+    def test_fuse_frames_max_active_matches_jax(self, frames):
+        """fuse_frames passes max_active on to the sparse fusion, as the
+        JAX package's fuse_frames(backend="sparse", max_active=k) does;
+        None keeps every active block."""
+        from otslam_tpu.config import ReconstructionConfig as JRec
+        from otslam_tpu.pipeline.reconstruct import fuse_frames as jfuse
+        from otslam_tpu_torch.config import ReconstructionConfig
+        from otslam_tpu_torch.pipeline.reconstruct import fuse_frames
+
+        depths, colors, exts = frames
+        meta = ttb.make_block_volume(TCFG, device="cpu").meta
+        band, vis = tc.classify_blocks(meta, t(depths), t(exts), T_SMALL)
+        _, active = tc.created_and_active(band, vis,
+                                          torch.zeros(band.shape[1],
+                                                      dtype=torch.bool))
+        k = int(active.sum(dim=1).max()) * 2 // 3     # binds on some frames
+        jvol = jfuse(depths, colors, exts, J_SMALL, JRec(tsdf=JCFG),
+                     "sparse", max_active=k, densify=False)
+        tvol = fuse_frames(depths, colors, exts, T_SMALL,
+                           ReconstructionConfig(tsdf=TCFG), "sparse",
+                           max_active=k, densify=False, device="cpu")
+        check_block_fusion(jvol, tvol, depths, exts)
+        free = fuse_frames(depths, colors, exts, T_SMALL,
+                           ReconstructionConfig(tsdf=TCFG), "sparse",
+                           densify=False, device="cpu")
+        lost = (free.weight.numpy() > 0) & (tvol.weight.numpy() == 0)
+        assert lost.sum() > 1000
+
     def test_pallas_contract(self):
         """Against the Pallas kernel (interpret mode, full-res colour) the
         port meets the JAX package's own Pallas contract
