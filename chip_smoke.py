@@ -99,13 +99,54 @@ wrong:
    room volume with the 8192 cap, which must bind; there also the whole
    schedule (integrate_frames_sparse) against its plain version, tsdf,
    weight, colour and created equal; K3 at 9c's largest dense-crop calls
-   (one single, one split launch); K5 on 9a's learned map.
+   (one single, one split launch); K5 on 9a's learned map;
+10. online path: (10a) the phase-4 capture streamed through OnlineFusion
+   (the native host library must have built: no NumPy fallback): a
+   producer thread pushes the 64 frames into a 16-slot frame ring,
+   waiting while it is full (nothing dropped), while this thread drains
+   micro-batches of 4 through the fusion schedule (max_active 2048);
+   extract -> the cloud above the floor -> evaluate_map, accuracy < 1 cm;
+   (10b) OTSLAMSystem on the card over phase 8's scenario (the mission's
+   world and saved map with --removed; 100 1440-beam scans, 50 at the
+   mission's start, then toward the box), every /virtual_scan a K5
+   launch, then its goal queue driven to exhaustion. The mips, K2, the
+   pack, K1, K3 and K5 must have launched. After the count: the drained
+   volume torch.equal to fuse_frames(max_active=2048, densify=False) of
+   the same frames and to the plain schedule at the same cap (which must
+   bind); the mips, K2, the pack and K1 against their plain versions on
+   micro-batch 8 (frames 32-35) at the volume state before it with its
+   capped work list, and K3 at evaluate_map's two calls, each shape added
+   to its kernel's record; the system's added and removed clouds, stable
+   objects and goal order equal to a CPU run's; the native tracker and
+   sender fed the same points give the Python classes' stable objects
+   and visit order. Prints frames/s push -> fused and the drain seconds;
+11. distributed path: (11a) one rank on cuda:0 in a NCCL group:
+   fuse_frames_sparse_data_parallel of the phase-4 capture at full width
+   (timed twice: the first call starts NCCL) and chamfer_data_parallel
+   of phase 10's cloud against the GT, then against the plain schedule
+   and integrate_frames_cuda (B5's tolerances) and the serial chamfer
+   with K3 and with its plain version (one rank's shard is phase 3's
+   64-frame shape); (11b) two ranks on cuda:0 in a gloo group
+   (distributed/launch.run_ranks, a 600 s hard timeout): dryrun_multichip
+   (the dense sharded paths run at its 64x48, 64^3 shapes) before the
+   count, as its serial references launch kernels too; then, counted, the
+   full-width frame-sharded fusion and extract_meshes_sharded of two
+   volumes (the capture and its first half-circle), held to the dry run's
+   tolerances (weights and created exact, tsdf <= 1e-4, colour <= 1e-3)
+   and to the single path's soups; each rank's local step (its 32 frames
+   into a volume created on the earlier ranks' bands) equal to the plain
+   schedule. A rank that fails or outlives its timeout fails the phase.
+   The mips, K2, the pack, K1 and K3 must have launched (both ranks'
+   counts added; K3 in 11a's chamfer). After the count, the mips, K2, the
+   pack and K1 against their plain versions at the second rank's shard,
+   each shape added to its kernel's record.
 
-Each path (phases 4, 4b, 6, 8 and 9) is driven with the launch counters set
-to 0 just before it and read just after. Every kernel's record carries two
-times: `ms`, CUDA events around the wrapper call (its host work included),
-and `kernel_ms`, the kernel alone in a torch.profiler trace (K3/K4: the
-scan and, for a split launch, the merge). It carries its bound too: the
+Each path (phases 4, 4b, 6, 8, 9, 10 and 11) is driven with the launch
+counters set to 0 just before it and read just after. Every kernel's
+record carries two times: `ms`, CUDA events around the wrapper call (its
+host work included), and `kernel_ms`, the kernel alone in a
+torch.profiler trace (K3/K4: the scan and, for a split launch, the
+merge). It carries its bound too: the
 larger of the bytes it must move over 3.35 TB/s and its f32 operations
 over 67 TFLOP/s (the H100 SXM's published peaks), at this run's shapes and
 data; every kernel also a `shapes` list with a record per shape (the log
@@ -184,6 +225,14 @@ SCAN_POSE = (0.0, 0.0, 0.3)            # 9a's virtual scan of the learned map
 DENSE_BOUNDS = (-5.2, 5.2, -5.2, 5.2, -0.1, 2.1)  # 9d's room volume (m) ...
 DENSE_VOXEL = 0.02                                 # ... at 2 cm ...
 DENSE_TRUNC = 0.08                                 # ... truncated at 8 cm
+ONLINE_RING = 16              # phase 10's frame ring capacity ...
+ONLINE_BATCH = 4              # ... and micro-batch
+ONLINE_MAX_ACTIVE = 2048      # OnlineFusion's per-frame cap (binds here)
+ONLINE_SHAPE_BATCH = 8        # the micro-batch held to the plain schedule
+SYSTEM_TICKS = 100            # phase 10's OTSLAMSystem scans ...
+SYSTEM_SETTLE = 50            # ... the first ones at the mission's start
+SYSTEM_STEP = 0.05            # m a tick toward the box after them
+RANK_TIMEOUT = 600            # s, phase 11b's two-rank group
 
 
 class SmokeFailure(RuntimeError):
@@ -1525,6 +1574,28 @@ def fuse_plain(vol, depths, colors, exts, intr, max_active):
     return most
 
 
+def schedule_shapes(label, base, depths, colors, exts, intr, max_active,
+                    k2s, k1, reps=5):
+    """The fusion schedule's kernels at one shape: k2_shape on the frames,
+    then k1_shape on the work list they give into the volume `base` (not
+    modified), capped at max_active as integrate_frames_cuda caps it; each
+    record appended to its kernel's `shapes`. Returns the (block, frame)
+    pairs before and after the cap."""
+    import torch
+
+    from otslam_tpu_torch.kernels import tsdf_cuda as tc
+    band, vis = k2_shape(label, base.meta, depths, colors, exts, intr, reps,
+                         {k: k2s[k]["shapes"] for k in k2s})
+    _, active = tc.created_and_active(band, vis,
+                                      base.created[:base.num_blocks])
+    pairs = int(active.sum())
+    if max_active is not None:
+        active &= torch.cumsum(active, dim=1) <= max_active
+    k1["shapes"].append(k1_shape(label, base, *tc.active_worklist(active),
+                                 depths, colors, exts, intr, reps))
+    return pairs, int(active.sum())
+
+
 def fusion_shapes(label, cfg, depths, colors, exts, intr, max_active,
                   k2s, k1):
     """The fusion schedule at one of phase 9's shapes: k2_shape and
@@ -1535,20 +1606,13 @@ def fusion_shapes(label, cfg, depths, colors, exts, intr, max_active,
     active-block count before the cap."""
     import torch
 
-    from otslam_tpu_torch.kernels import tsdf_cuda as tc
     from otslam_tpu_torch.kernels.tsdf_block import (integrate_frames_sparse,
                                                      make_block_volume)
     dev = depths.device
     vol = make_block_volume(cfg, dev)
     nb = vol.num_blocks
-    band, vis = k2_shape(label, vol.meta, depths, colors, exts, intr, 5,
-                         {k: k2s[k]["shapes"] for k in k2s})
-    _, active = tc.created_and_active(band, vis, vol.created[:nb])
-    if max_active is not None:
-        active &= torch.cumsum(active, dim=1) <= max_active
-    k1["shapes"].append(k1_shape(label, vol, *tc.active_worklist(active),
-                                 depths, colors, exts, intr))
-    del band, vis, active
+    schedule_shapes(label, vol, depths, colors, exts, intr, max_active, k2s,
+                    k1)
     card = integrate_frames_sparse(vol, depths, colors, exts, intr,
                                    max_active=max_active)
     plain = make_block_volume(cfg, dev)
@@ -1577,6 +1641,26 @@ def largest_pairs(kept: dict, dev):
         if key not in kept or n * m > kept[key][0]:
             kept[key] = (n * m, src.clone(), dst.clone(), dst_mask.clone())
     return keep
+
+
+def every_call(kept: list):
+    """A keep() for k3_calls: clones of every call's operands, in order."""
+    def keep(src, dst, dst_mask):
+        kept.append((src.clone(), dst.clone(), dst_mask.clone()))
+    return keep
+
+
+@contextlib.contextmanager
+def plain_nn_min():
+    """While the block runs, nn_min is its plain version, so nn_distance
+    and what calls it compute without K3."""
+    from otslam_tpu_torch.kernels import nn
+    real = nn.nn_min
+    nn.nn_min = nn.nn_min_torch
+    try:
+        yield
+    finally:
+        nn.nn_min = real
 
 
 def phase_map_building(dev, workdir: str):
@@ -1642,6 +1726,546 @@ def phase9_shapes(dev, frames, learned, crops, k2s, k1, k3, k5):
                                  np.asarray([SCAN_POSE], np.float32), dev))
 
 
+def online_stream(of, depths, colors, exts):
+    """Push every frame from a producer thread, waiting while the ring is
+    full (nothing is dropped), and drain on this thread until all are
+    fused. Returns (push -> fused wall seconds ending in a sync, seconds
+    inside drain calls)."""
+    import threading
+
+    import torch
+    errors = []
+
+    def produce():
+        try:
+            for d, c, e in zip(depths, colors, exts):
+                while len(of.ring) >= ONLINE_RING:
+                    time.sleep(1e-4)
+                of.push(d, c, e)
+        except Exception as ex:        # reported by the draining thread
+            errors.append(ex)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
+    drain_s = 0.0
+    while of.frames_fused < len(depths):
+        check(not errors, f"producer failed: {errors}")
+        check(time.perf_counter() - t0 < 120, "online fusion stalled")
+        t1 = time.perf_counter()
+        if of.drain():
+            drain_s += time.perf_counter() - t1
+        else:
+            time.sleep(1e-4)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    drain_s += time.perf_counter() - t1
+    total = time.perf_counter() - t0
+    producer.join(10)
+    check(not producer.is_alive() and not errors,
+          f"producer did not finish cleanly: {errors}")
+    return total, drain_s
+
+
+def phase_online(batch, intr, vol_cfg, dev, gt):
+    """Phase 10a: the phase-4 capture streamed through OnlineFusion (a
+    producer thread -> the native ring -> micro-batches of 4 through the
+    fusion schedule), then extract -> the z-filtered cloud -> evaluate_map.
+    Returns (the volume, the cloud, the push -> fused colours, the
+    operands of evaluate_map's K3 calls)."""
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch.adapters.native import native_available
+    from otslam_tpu_torch.config import ReconstructionConfig
+    from otslam_tpu_torch.eval.metrics import evaluate_map
+    from otslam_tpu_torch.pipeline import OnlineFusion
+
+    check(native_available(), "the native host library did not build or "
+          "load (g++): the ring fell back to NumPy")
+    cfg = ReconstructionConfig(tsdf=vol_cfg)
+    colors = batch.colors.astype(np.uint8)        # what a camera pushes
+    of = OnlineFusion(cfg, intr, ring_capacity=ONLINE_RING,
+                      batch=ONLINE_BATCH, max_active=ONLINE_MAX_ACTIVE,
+                      device=dev)
+    total, drain_s = online_stream(of, batch.depths, colors,
+                                   batch.extrinsics)
+    check(of.frames_fused == N_FRAMES and of.dropped_frames == 0,
+          f"fused {of.frames_fused}, dropped {of.dropped_frames}")
+    pts, _, mask = of.extract()
+    cloud = pts[mask]
+    cloud = cloud[cloud[:, 2] >= cfg.z_filter_threshold]
+    k3_ops: list = []
+    with k3_calls(every_call(k3_ops)):
+        m = evaluate_map(cloud, gt, device=dev)
+    torch.cuda.synchronize()
+    log(f"online: {N_FRAMES} frames pushed -> fused in {total:.4f} s "
+        f"({N_FRAMES / total:.1f} frames/s), drain {drain_s:.4f} s, ring "
+        f"{ONLINE_RING}, batch {ONLINE_BATCH}, max_active "
+        f"{ONLINE_MAX_ACTIVE}; cloud {len(cloud)} points above the floor, "
+        f"accuracy {m.accuracy_cm:.4f} cm, completeness "
+        f"{m.completeness_cm:.4f} cm")
+    check(len(cloud) > 0 and bool(torch.isfinite(cloud).all()),
+          "online cloud empty or non-finite")
+    check(m.accuracy_cm < 1.0, f"online accuracy {m.accuracy_cm} cm >= 1")
+    return of.volume, cloud, colors, k3_ops
+
+
+def phase_online_checks(vol, batch, colors, intr, vol_cfg, dev, k3_ops,
+                        k2s, k1, k3):
+    """After phase 10's count: the drained volume torch.equal to one batch
+    fusion of the same frames at the same per-frame cap, on the card
+    (fuse_frames) and by the plain schedule (fuse_plain, whose cap must
+    bind); then each kernel against its plain version at the path's
+    shapes, each record added to its kernel's `shapes`: the mips, K2, the
+    pack and K1 on micro-batch ONLINE_SHAPE_BATCH at the volume state
+    before it, with its capped work list, and K3 at evaluate_map's calls."""
+    import torch
+
+    from otslam_tpu_torch.config import ReconstructionConfig
+    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
+    from otslam_tpu_torch.pipeline.reconstruct import fuse_frames
+    ref = fuse_frames(batch.depths, colors, batch.extrinsics, intr,
+                      ReconstructionConfig(tsdf=vol_cfg),
+                      max_active=ONLINE_MAX_ACTIVE, densify=False,
+                      device=dev)
+    d, c, e = (torch.as_tensor(x, device=dev, dtype=torch.float32)
+               for x in (batch.depths, colors, batch.extrinsics))
+    plain = make_block_volume(vol_cfg, dev)
+    most = fuse_plain(plain, d, c, e, intr, ONLINE_MAX_ACTIVE)
+    for f in ("tsdf", "weight", "color", "created"):
+        check(bool(torch.equal(getattr(vol, f), getattr(ref, f))),
+              f"online volume's {f} != the batch fusion's")
+        check(bool(torch.equal(getattr(vol, f), getattr(plain, f))),
+              f"online volume's {f} != the plain schedule's")
+    check(most > ONLINE_MAX_ACTIVE, f"the online cap never binds ({most} "
+          f"active blocks at most)")
+    log(f"online volume == fuse_frames(max_active={ONLINE_MAX_ACTIVE}) and "
+        f"== the plain schedule of the same frames (tsdf, weight, colour, "
+        f"created); at most {most} active blocks a frame before the cap")
+    del ref, plain
+    j0 = ONLINE_SHAPE_BATCH * ONLINE_BATCH
+    f = slice(j0, j0 + ONLINE_BATCH)
+    base = make_block_volume(vol_cfg, dev)
+    fuse_plain(base, d[:j0], c[:j0], e[:j0], intr, ONLINE_MAX_ACTIVE)
+    label = (f"online micro-batch {ONLINE_SHAPE_BATCH} (frames {j0}-"
+             f"{j0 + ONLINE_BATCH - 1}), max_active {ONLINE_MAX_ACTIVE}")
+    pairs, capped = schedule_shapes(label, base, d[f], c[f], e[f], intr,
+                                    ONLINE_MAX_ACTIVE, k2s, k1, reps=10)
+    log(f"  {label}: {pairs} active (block, frame) pairs, {capped} after "
+        f"the cap, {int(base.created.sum())} blocks created before it")
+    del base
+    for src, dst, mask in k3_ops:
+        k3["shapes"].append(k3_shape(
+            f"online evaluate_map {src.shape[0]} x {dst.shape[0]}", src,
+            dst, mask, dev))
+
+
+def system_scenario(dev):
+    """Phase 8's scenario for OTSLAMSystem: the mission CLI's runner with
+    --removed (the cardboard world, the saved map with the removed box),
+    and SYSTEM_TICKS real 1440-beam scans rendered on the card: the first
+    SYSTEM_SETTLE at the mission's start pose, then SYSTEM_STEP m a tick
+    toward the box, facing it. Returns (cfg, saved map grid, angles,
+    poses, scans) as host arrays."""
+    import argparse
+
+    import numpy as np
+
+    from otslam_tpu_torch.cli import mission_runner
+    from otslam_tpu_torch.sim.sensors import render_lidar
+
+    args = argparse.Namespace(scenario="cardboard", removed=True,
+                              perception_batch=MISSION_POSES,
+                              odom_noise=0.0, localizer=False,
+                              start="-2.0,-2.0,0.5")
+    with tempfile.TemporaryDirectory() as tmp:
+        runner = mission_runner(args, tmp, dev)
+    cfg = runner.cfg
+    grid = runner.vscanner._map                  # the saved map
+    angles = runner.vscanner.angles().cpu().numpy()
+    x0, y0 = runner.x, runner.y
+    bx, by = BOX_XY
+    heading = np.arctan2(by - y0, bx - x0)
+    poses, scans = [], []
+    for k in range(SYSTEM_TICKS):
+        s = SYSTEM_STEP * max(0, k - SYSTEM_SETTLE + 1)
+        pose = (float(x0 + s * np.cos(heading)),
+                float(y0 + s * np.sin(heading)), float(heading))
+        poses.append(pose)
+        scans.append(render_lidar(
+            runner.scene_world, *pose, runner.vscanner.angles(),
+            cfg.lidar.range_min, cfg.lidar.range_max, device=dev)
+            .cpu().numpy())
+    return cfg, grid, angles, poses, scans
+
+
+def run_system(cfg, grid, angles, poses, scans, device):
+    """OTSLAMSystem over the scan sequence on `device`, then its goal
+    queue driven to exhaustion (teleporting to each goal). Returns the
+    system and its record: every tick's added and removed clouds, the
+    stable objects of both trackers, the final visiting points and the
+    goal order."""
+    from otslam_tpu_torch.adapters.bus import Bus, OTSLAMSystem
+    system = OTSLAMSystem(cfg, Bus(), device=device)
+    b = system.bus
+    added, removed = [], []
+    b.subscribe("/added_objects", added.append)
+    b.subscribe("/removed_objects", removed.append)
+    b.publish("/virtual_map", grid)
+    for k, (pose, real) in enumerate(zip(poses, scans)):
+        b.publish("/odom", pose[:2])
+        b.publish("/scan", {"ranges": real, "angles": angles, "pose": pose,
+                            "stamp": 0.2 * (k + 1)})
+    points = (b.last.get("/object_visiting_points", []),
+              b.last.get("/removed_object_visiting_points", []))
+    goals = []
+    for _ in range(200):
+        g = system.control_step()
+        if g is None and system.sender.pending_count() == 0:
+            break
+        if g is not None:
+            goals.append((g.unique_id, g.object_id, g.is_removed))
+            b.publish("/odom", (g.x, g.y))
+    def stable(tracker):
+        return [(o.cx, o.cy, o.width, o.height, o.site_id)
+                for o in tracker.stable_objects]
+    return system, {"added": added, "removed": removed,
+                    "stable": stable(system.tracker),
+                    "removed_stable": stable(system.removed_tracker),
+                    "points": points, "goals": goals}
+
+
+def phase_system(dev):
+    """Phase 10b: OTSLAMSystem on the card over phase 8's scenario (K5 for
+    every /virtual_scan). Returns what phase_system_checks compares."""
+    import torch
+    t0 = time.perf_counter()
+    scenario = system_scenario(dev)
+    t1 = time.perf_counter()
+    _, card = run_system(*scenario, device=dev)
+    torch.cuda.synchronize()
+    log(f"system: {SYSTEM_TICKS} scans rendered in {t1 - t0:.3f} s, bus "
+        f"run {time.perf_counter() - t1:.3f} s; {len(card['stable'])} "
+        f"stable, {len(card['removed_stable'])} removed stable, goals "
+        f"{card['goals']}")
+    check(len(card["stable"]) >= 1 and len(card["goals"]) >= 1,
+          f"the system found no object or goal: {card['stable']}")
+    return scenario, card
+
+
+def phase_system_checks(scenario, card):
+    """After phase 10's count: the card's record equal to a CPU run of the
+    same system; the native tracker and sender fed the same points give
+    the Python classes' stable objects and visit order."""
+    import numpy as np
+
+    from otslam_tpu_torch.adapters.native_mission import (
+        NativeGoalSender, NativeObjectTracker)
+    _, cpu = run_system(*scenario, device="cpu")
+    for k in ("added", "removed"):
+        check(len(card[k]) == len(cpu[k]) and all(
+            np.array_equal(a, b) for a, b in zip(card[k], cpu[k])),
+            f"/{k}_objects differ between the card and the CPU")
+    for k in ("stable", "removed_stable", "goals"):
+        check(card[k] == cpu[k], f"{k} card {card[k]} != CPU {cpu[k]}")
+    cfg = scenario[0]
+    for key, clouds in (("stable", card["added"]),
+                        ("removed_stable", card["removed"])):
+        native = NativeObjectTracker(cfg.tracker)
+        for k, pts in enumerate(clouds):
+            native.update(pts, 0.2 * (k + 1))
+        got = sorted((o.cx, o.cy, o.width, o.height)
+                     for o in native.stable_objects)
+        want = sorted(s[:4] for s in card[key])
+        # the Python tracker clusters in f32, the C++ in f64
+        same = len(got) == len(want) and (not want or bool(np.allclose(
+            got, want, rtol=0, atol=1e-5)))
+        check(same, f"native tracker {got} != Python {want} ({key})")
+    sender = NativeGoalSender(cfg.mission)
+    sender.on_added_points(card["points"][0])
+    sender.on_removed_points(card["points"][1])
+    x, y, _ = scenario[3][-1]
+    sender.on_odom(x, y)
+    goals = []
+    for _ in range(200):
+        g = sender.control_step()
+        if g is None and sender.pending_count() == 0:
+            break
+        if g is not None:
+            goals.append((g.unique_id, g.object_id, g.is_removed))
+            sender.on_odom(g.x, g.y)
+    check(goals == card["goals"],
+          f"native sender order {goals} != Python {card['goals']}")
+    log(f"system: card == CPU on {len(card['added'])} ticks (added and "
+        f"removed clouds, stable objects, goal order {card['goals']}); the "
+        f"native tracker and sender agree")
+
+
+def phase_nccl(batch, intr, vol_cfg, dev, cloud, gt):
+    """Phase 11a: one rank on the card in a NCCL group (the production
+    backend): the frame-sharded sparse fusion of the phase-4 capture and
+    the sharded chamfer of phase 10's cloud against the GT, the fusion
+    timed twice (NCCL starts its communicator in the first call). Returns
+    (the volume, the chamfer)."""
+    import torch
+    import torch.distributed as dist
+
+    from otslam_tpu_torch.distributed import (
+        chamfer_data_parallel, fuse_frames_sparse_data_parallel, make_mesh)
+    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
+    depths, colors, exts = (torch.as_tensor(x, device=dev) for x in (
+        batch.depths, batch.colors, batch.extrinsics))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1,), ("data",), "cuda")
+            vol0 = make_block_volume(vol_cfg, dev)
+            seconds = []      # the first call starts NCCL's communicator
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vol = fuse_frames_sparse_data_parallel(vol0, depths, colors,
+                                                       exts, intr, mesh)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            chamfer = float(chamfer_data_parallel(
+                cloud, torch.as_tensor(gt, device=dev), mesh))
+        finally:
+            dist.destroy_process_group()
+    log(f"nccl: 1 rank, sparse frame-sharded fusion of {N_FRAMES} VGA "
+        f"frames into {vol_cfg.dims}: {seconds[0]:.4f} s with NCCL's "
+        f"start, then {seconds[1]:.4f} s; chamfer {chamfer:.6f} m")
+    return vol, chamfer
+
+
+def check_sharded_volume(label, vol, ref):
+    """B5's tolerances: weights and created exact, tsdf <= 1e-4, colour
+    <= 1e-3, the dead row zero. Returns the max deltas."""
+    import torch
+    d = {f: float(torch.max(torch.abs(getattr(vol, f) - getattr(ref, f))))
+         for f in ("tsdf", "weight", "color")}
+    check(d["weight"] == 0.0 and bool(torch.equal(vol.created,
+                                                  ref.created)),
+          f"{label}: weights or created differ from the serial fusion {d}")
+    check(d["tsdf"] <= 1e-4 and d["color"] <= 1e-3,
+          f"{label}: tsdf/colour beyond 1e-4/1e-3 of the serial fusion {d}")
+    check(not bool(vol.weight[-1].any() or vol.created[-1]),
+          f"{label}: dead row not zero")
+    return d
+
+
+def phase_nccl_checks(batch, intr, vol_cfg, dev, vol, chamfer, cloud, gt):
+    """After phase 11's count: 11a's volume against the plain schedule
+    (fuse_plain) and integrate_frames_cuda of the same frames, its chamfer
+    against the serial one with K3 and with its plain version. With one
+    rank, the rank's shard is the whole capture into an empty volume,
+    uncapped: phase 3's 64-frame shape, where the mips, K2, the pack and
+    K1 meet their plain versions."""
+    import torch
+
+    from otslam_tpu_torch.kernels.nn import nn_distance
+    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
+    from otslam_tpu_torch.kernels.tsdf_cuda import integrate_frames_cuda
+    frames = [torch.as_tensor(x, device=dev) for x in (
+        batch.depths, batch.colors, batch.extrinsics)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = integrate_frames_cuda(make_block_volume(vol_cfg, dev), *frames,
+                                intr)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    d = check_sharded_volume("nccl", vol, ref)
+    plain = make_block_volume(vol_cfg, dev)
+    fuse_plain(plain, *frames, intr, None)
+    dp = check_sharded_volume("nccl against the plain schedule", vol, plain)
+    del ref, plain
+    gtt = torch.as_tensor(gt, device=dev)
+    want = float(torch.mean(nn_distance(cloud, gtt)))
+    with plain_nn_min():
+        want_plain = float(torch.mean(nn_distance(cloud, gtt)))
+    for w in (want, want_plain):
+        check(abs(chamfer - w) <= 1e-5 + 1e-5 * abs(w),
+              f"nccl chamfer {chamfer} != serial {w} (K3 {want}, plain "
+              f"{want_plain})")
+    log(f"nccl: == serial within B5's tolerances, max deltas {d}, against "
+        f"the plain schedule {dp}; the serial fusion {serial_s:.4f} s; "
+        f"chamfer delta {abs(chamfer - want):.3e} (K3), "
+        f"{abs(chamfer - want_plain):.3e} (plain)")
+
+
+def rank_shard_equal(vol_cfg, depths, colors, exts, intr, rank: int,
+                     world: int) -> dict:
+    """One rank's local step of the frame-sharded fusion, with its kernels
+    and with their plain versions: the rank's contiguous shard of frames
+    fused into a zero volume whose created mask holds the bands of every
+    earlier rank's frames (found by the plain K2), by integrate_frames_cuda
+    and by fuse_plain, every field equal; K2 on the shard equal to its
+    plain version. Returns the shard's shape."""
+    import copy
+
+    import torch
+
+    from otslam_tpu_torch.kernels import tsdf_cuda as tc
+    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
+    dev = depths.device
+    per = depths.shape[0] // world
+    lo, hi = rank * per, (rank + 1) * per
+    start = make_block_volume(vol_cfg, dev)
+    nb = start.num_blocks
+    if lo:
+        band, _ = tc.classify_blocks_torch(start.meta, depths[:lo],
+                                           exts[:lo], intr)
+        start.created[:nb] |= band.any(dim=0)
+        del band
+    f = slice(lo, hi)
+    band, vis = tc.classify_blocks(start.meta, depths[f], exts[f], intr)
+    band_p, vis_p = tc.classify_blocks_torch(start.meta, depths[f], exts[f],
+                                             intr)
+    check(bool(torch.equal(band, band_p)) and bool(torch.equal(vis, vis_p)),
+          f"rank {rank}: K2 differs from its plain version on its shard")
+    del band, vis, band_p, vis_p
+    card = tc.integrate_frames_cuda(copy.deepcopy(start), depths[f],
+                                    colors[f], exts[f], intr)
+    plain = copy.deepcopy(start)
+    most = fuse_plain(plain, depths[f], colors[f], exts[f], intr, None)
+    torch.cuda.synchronize()
+    diff = {k: int((getattr(card, k) != getattr(plain, k)).sum())
+            for k in ("tsdf", "weight", "color", "created")}
+    check(not any(diff.values()), f"rank {rank}: the local fusion of its "
+          f"shard differs from the plain schedule (entries {diff})")
+    return {"frames": (lo, hi), "prefix_blocks": int(start.created.sum()),
+            "most_active": most}
+
+
+def phase11_rank() -> dict:
+    """One rank of phase 11b (both ranks on cuda:0, a gloo group): the dry
+    run, outside the count (its serial references launch kernels too);
+    then the frame-sharded sparse fusion of the full-width capture and the
+    sharded extraction of two object volumes, counted; then each against
+    its serial result, and the rank's local step against the plain
+    schedule (rank_shard_equal). Returns the rank's record."""
+    import torch
+    torch.cuda.set_device(0)
+    sys.path.insert(0, ROOT)
+    from otslam_tpu_torch.config import ReconstructionConfig
+    from otslam_tpu_torch.distributed import (
+        extract_meshes_sharded, fuse_frames_sparse_data_parallel, make_mesh)
+    from otslam_tpu_torch.distributed.dryrun import dryrun_multichip
+    from otslam_tpu_torch.kernels import nn, raycast
+    from otslam_tpu_torch.kernels import tsdf_cuda as tc
+    from otslam_tpu_torch.kernels.marching import (
+        _validate_batch, extract_mesh_soup_block)
+    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
+    from otslam_tpu_torch.pipeline.reconstruct import auto_volume_config
+
+    dev = torch.device("cuda:0")
+    mesh = make_mesh(None, ("data",), "cuda")
+    batch, intr, _ = render_capture(dev)
+    vol_cfg = auto_volume_config(batch, intr, ReconstructionConfig()).tsdf
+    depths, colors, exts = (torch.as_tensor(x, device=dev) for x in (
+        batch.depths, batch.colors, batch.extrinsics))
+    half = N_FRAMES // 2        # the second object: the first half-circle
+    other = tc.integrate_frames_cuda(make_block_volume(vol_cfg, dev),
+                                     depths[:half], colors[:half],
+                                     exts[:half], intr)
+    counters = (tc.depth_mips, tc.classify_blocks, tc.pack_rgb,
+                tc.fuse_blocks, nn.nn_min, nn.nn_min_windowed,
+                raycast.ray_keys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(mesh)
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t1 = time.perf_counter()
+    vol = fuse_frames_sparse_data_parallel(
+        make_block_volume(vol_cfg, dev), depths, colors, exts, intr, mesh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    verts, cols, masks = extract_meshes_sharded([vol, other], mesh)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    ref = tc.integrate_frames_cuda(make_block_volume(vol_cfg, dev), depths,
+                                   colors, exts, intr)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    deltas = check_sharded_volume("gloo", vol, ref)
+    mb, mc = _validate_batch([vol, other])
+    for k, v in enumerate((vol, other)):
+        rv, rc, rm = extract_mesh_soup_block(v, mb, mc)
+        check(bool(torch.equal(masks[k], rm)) and bool(torch.equal(
+            verts[k][rm], rv[rm])) and bool(torch.equal(cols[k][rm],
+                                                        rc[rm])),
+              f"sharded soup {k} != extract_mesh_soup_block")
+    rank = torch.distributed.get_rank()
+    shard = rank_shard_equal(vol_cfg, depths, colors, exts, intr, rank,
+                             torch.distributed.get_world_size())
+    return {"rank": rank, "dryrun": dry, "shard": shard,
+            "deltas": deltas, "launches": launches,
+            "seconds": {"dryrun": t1 - t0, "fuse": t2 - t1,
+                        "extract": t3 - t2, "serial_fuse": t4 - t3},
+            "triangles": [int(m.sum()) for m in masks],
+            "capacities": (mb, mc)}
+
+
+def phase_gloo():
+    """Phase 11b: two ranks on cuda:0 in a gloo group (phase11_rank).
+    Returns the ranks' records; a rank that fails or outlives
+    RANK_TIMEOUT fails the phase."""
+    import torch
+
+    from otslam_tpu_torch.distributed.launch import run_ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(phase11_rank, world=2, backend="gloo",
+                          timeout=RANK_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        raise SmokeFailure(f"phase 11b: {e}") from e
+    for r in ranks:
+        log(f"gloo rank {r['rank']}: dry run (the dense paths at its "
+            f"64x48, 64^3 shapes) {r['seconds']['dryrun']:.3f} s, deltas "
+            f"{r['dryrun']['deltas']}; sparse fusion of {N_FRAMES} VGA "
+            f"frames {r['seconds']['fuse']:.4f} s (serial "
+            f"{r['seconds']['serial_fuse']:.4f} s), max deltas "
+            f"{r['deltas']}; extraction of 2 volumes "
+            f"{r['seconds']['extract']:.4f} s at capacities "
+            f"{r['capacities']}, {r['triangles']} triangles; launches "
+            f"{r['launches']}; its shard {r['shard']} fused locally equal "
+            f"to the plain schedule")
+    log(f"phase 11b: {time.perf_counter() - t0:.1f} s with the ranks' "
+        f"start")
+    return ranks
+
+
+def rank_shapes(batch, intr, vol_cfg, dev, k2s, k1):
+    """After phase 11: the mips, K2, the pack and K1 against their plain
+    versions at 11b's second rank's shard (frames N/2 .. N-1 into a zero
+    volume created on the bands of frames 0 .. N/2 - 1, uncapped), each
+    record added to its kernel's `shapes`."""
+    import torch
+
+    from otslam_tpu_torch.kernels import tsdf_cuda as tc
+    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
+    d, c, e = (torch.as_tensor(x, device=dev) for x in (
+        batch.depths, batch.colors, batch.extrinsics))
+    half = N_FRAMES // 2
+    base = make_block_volume(vol_cfg, dev)
+    nb = base.num_blocks
+    band, _ = tc.classify_blocks_torch(base.meta, d[:half], e[:half], intr)
+    base.created[:nb] = band.any(dim=0)
+    f = slice(half, N_FRAMES)
+    label = (f"gloo rank 1 shard (frames {half}-{N_FRAMES - 1}, creation "
+             f"prefix of frames 0-{half - 1})")
+    schedule_shapes(label, base, d[f], c[f], e[f], intr, None, k2s, k1,
+                    reps=10)
+
+
 def main() -> int:
     """Exit code 0 when every phase passed, 1 when a check failed
     (SmokeFailure, its message on stderr), 2 when the run cannot start
@@ -1667,7 +2291,7 @@ def main() -> int:
 
 
 def smoke() -> int:
-    """Phases 1-9 and 4b (the module docstring); raises SmokeFailure."""
+    """Phases 1-11 and 4b (the module docstring); raises SmokeFailure."""
     import torch
 
     from otslam_tpu_torch.config import ReconstructionConfig
@@ -1787,6 +2411,40 @@ def smoke() -> int:
           f"{hl_launches}")
     phase9_shapes(dev, *phase9, k2s, k1, k3, k5)
     del phase9
+
+    # --- 10. online path ---------------------------------------------------
+    for fn in counters:
+        fn.launches = 0
+    online_vol, cloud, pushed, k3_ops = phase_online(batch, intr, vol_cfg,
+                                                     dev, gt)
+    scenario, card_record = phase_system(dev)
+    torch.cuda.synchronize()
+    on_launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"online path launches {on_launches}")
+    check(all(on_launches[k] > 0 for k in fusion + ("nn_min", "ray_keys")),
+          f"a kernel of the online path never launched: {on_launches}")
+    phase_online_checks(online_vol, batch, pushed, intr, vol_cfg, dev,
+                        k3_ops, k2s, k1, k3)
+    phase_system_checks(scenario, card_record)
+    del online_vol, scenario, card_record, k3_ops
+
+    # --- 11. distributed path ----------------------------------------------
+    for fn in counters:
+        fn.launches = 0
+    nccl_vol, chamfer = phase_nccl(batch, intr, vol_cfg, dev, cloud, gt)
+    torch.cuda.synchronize()
+    dist_launches = {fn.__name__: fn.launches for fn in counters}
+    phase_nccl_checks(batch, intr, vol_cfg, dev, nccl_vol, chamfer, cloud,
+                      gt)
+    del nccl_vol
+    for r in phase_gloo():
+        for k, n in r["launches"].items():
+            dist_launches[k] += n
+    log(f"distributed path launches {dist_launches}")
+    check(all(dist_launches[k] > 0 for k in fusion + ("nn_min",)),
+          f"a kernel of the distributed path never launched: "
+          f"{dist_launches}")
+    rank_shapes(batch, intr, vol_cfg, dev, k2s, k1)
     check("jax" not in sys.modules, "jax was imported")
 
     def counts(name):
@@ -1794,7 +2452,9 @@ def smoke() -> int:
                    "mesh": mesh_launches[name],
                    "registration": reg_launches[name],
                    "mission": mis_launches[name],
-                   "headline": hl_launches[name]}
+                   "headline": hl_launches[name],
+                   "online": on_launches[name],
+                   "distributed": dist_launches[name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 

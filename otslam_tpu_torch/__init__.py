@@ -4,8 +4,7 @@ The port mirrors otslam_tpu's module paths, so each counterpart is found by
 name; otslam_tpu stays the reference the port is tested against. This
 package never imports jax or otslam_tpu.
 
-Layer map of the ported slices (per-object reconstruction with its eval,
-registration, and perception with the closed-loop mission):
+Layer map (everything the JAX package does except its benchmark):
   core/        camera model, SE(3)/frames, PLY/pose/depth io, volume io,
                occupancy grid
   kernels/     TSDF fusion (dense and block-sparse), resampling, NN/chamfer
@@ -13,7 +12,12 @@ registration, and perception with the closed-loop mission):
                pose graph, ray cast, scan diff, evidence grids, host
                clustering; the hand-written CUDA kernels live in csrc/ and
                are built on first use by kernels/_build.py
-  pipeline/    dataset reader, pose refinement, frames -> TSDF -> cloud
+  pipeline/    dataset reader, pose refinement, frames -> TSDF -> cloud,
+               streaming fusion over the native frame ring (online.py)
+  adapters/    the native host runtime and mission control plane (their
+               C++ in otslam_tpu_torch/native, built with g++ on first
+               use), the topic bus
+  distributed/ sharded fusion, extraction and eval on torch.distributed
   mapping/     scan-to-map localization, virtual scanner, change detector,
                batched perception ticks, object filters
   mission/     tracker, visiting points, goal queue, manager, scanner

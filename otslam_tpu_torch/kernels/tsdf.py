@@ -161,6 +161,32 @@ def integrate_frames(vol: TSDFVolume, depths, colors, extrinsics,
     return vol
 
 
+def partial_integrate(depths, colors, extrinsics, intr: PinholeIntrinsics,
+                      cfg: TSDFConfig):
+    """Order-independent partial sums of a shard of frames, on the frames'
+    device: (sum_tw (X,Y,Z), sum_w (X,Y,Z), sum_cw (3,X,Y,Z)). Shards
+    combine by addition (an all-reduce over the data axis), then
+    `merge_partials` folds them into a volume; equal to integrate_frames
+    up to floating-point reassociation."""
+    vol = make_volume(cfg, depths.device)
+    sum_tw, sum_w, sum_cw = vol.tsdf, vol.weight, vol.color
+    for i in range(depths.shape[0]):
+        tsdf_obs, w_obs, col_obs = _observe_frame(
+            vol, depths[i], colors[i], extrinsics[i], intr)
+        sum_tw = sum_tw + tsdf_obs * w_obs
+        sum_w = sum_w + w_obs
+        sum_cw = sum_cw + col_obs
+    return sum_tw, sum_w, sum_cw
+
+
+def merge_partials(sum_tw, sum_w, sum_cw, cfg: TSDFConfig) -> TSDFVolume:
+    """The volume of summed partials: weighted means over max(sum_w, 1)."""
+    denom = torch.clamp(sum_w, min=1.0)
+    return TSDFVolume(sum_tw / denom, sum_w, sum_cw / denom[None],
+                      tuple(float(o) for o in cfg.origin),
+                      float(cfg.voxel_size), float(cfg.sdf_trunc))
+
+
 def _compact(mask: torch.Tensor, capacity: int) -> torch.Tensor:
     """Ascending flat indices of the set entries, at most `capacity` (the
     order of the JAX package's stable-argsort compaction)."""

@@ -1,1 +1,4 @@
-"""Dataset reader and the per-object reconstruction pipeline."""
+"""Dataset reader, the per-object reconstruction pipeline and online
+fusion."""
+
+from otslam_tpu_torch.pipeline.online import OnlineFusion  # noqa: F401

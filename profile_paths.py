@@ -2,10 +2,10 @@
 """Where the time of the port's paths goes, on one CUDA GPU.
 
     python3 profile_paths.py [reconstruct] [mesh] [registration] [mission]
-                             [headline]
+                             [headline] [online]
 
-Drives each named path (all five by default) as chip_smoke.py's phases 4,
-4b, 6, 8 and 9c drive it: the 64-frame VGA capture of the cardboard room
+Drives each named path (all six by default) as chip_smoke.py's phases 4,
+4b, 6, 8, 9c and 10a drive it: the 64-frame VGA capture of the cardboard room
 through reconstruct_frames and the eval; the same with mesh output (the PLY
 with its faces, the eval of the vertices above the floor); that capture
 with drifted poses through
@@ -13,7 +13,10 @@ refine="icp" and "pgo", then a 1440-beam scan localization; the mission CLI
 with --removed --localizer --perception-batch 8 for 300 ticks, then
 reconstruct_all and the eval; headline_report at its defaults on the
 cardboard room (capture circle, fusion and cloud, the 48-frame dense
-sweep, its PLYs and voxel downsampling, the evals). Each path runs three
+sweep, its PLYs and voxel downsampling, the evals); the capture pushed
+by a producer thread into OnlineFusion and drained in micro-batches of 4,
+then extracted and evaluated (cProfile sees the draining thread only).
+Each path runs three
 times: a warm-up (kernel build and first-use costs), a timed run (its
 stage lines, host clock), and a run under torch.profiler (CPU and CUDA
 activities) and cProfile. For the
@@ -51,7 +54,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PATHS = ("reconstruct", "mesh", "registration", "mission", "headline")
+PATHS = ("reconstruct", "mesh", "registration", "mission", "headline",
+         "online")
 # the fusion schedule's passes before K1, by function name: K2's wrapper,
 # the depth mips (the card's pass and the plain torch pyramid) and the
 # colour pack (tsdf_cuda's wrapper and the plain tsdf_block.pack_rgb)
@@ -80,6 +84,8 @@ STAGES = {
                  "fuse_frames", "extract_filtered_cloud", "save_hybrid_map",
                  "_room_sweep", "backproject_pointcloud", "write_ply",
                  "voxel_downsample", "evaluate_map") + PASSES,
+    "online": ("drain", "pop", "integrate_frames_cuda", "active_worklist",
+               "fuse_blocks", "extract", "evaluate_map") + PASSES,
 }
 # the repo's CUDA kernels (csrc/), by their names in a trace
 KERNELS = ("mips_tile_kernel", "mips_finish_kernel", "classify_kernel",
@@ -210,6 +216,7 @@ def main(argv: list[str]) -> int:
     import otslam_tpu_torch.pipeline.reconstruct  # noqa: F401 (the same)
     from otslam_tpu_torch.config import ReconstructionConfig
     from otslam_tpu_torch.eval.scenarios import scenario_gt
+    from otslam_tpu_torch.pipeline.reconstruct import auto_volume_config
     wrap_passes()
 
     smi = subprocess.run(
@@ -221,6 +228,7 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda:0")
     batch, intr, _ = cs.render_capture(dev)
     cfg = ReconstructionConfig()
+    vol_cfg = auto_volume_config(batch, intr, cfg).tsdf
     gt = scenario_gt("cardboard", cs.GT_POINTS)
     with tempfile.TemporaryDirectory() as tmp:
         runs = {
@@ -234,6 +242,8 @@ def main(argv: list[str]) -> int:
                 dev, os.path.join(tmp, f"mission_{tag}")),
             "headline": lambda tag: cs.phase_headline(
                 dev, os.path.join(tmp, f"headline_{tag}"), "cardboard"),
+            "online": lambda tag: cs.phase_online(batch, intr, vol_cfg, dev,
+                                                  gt),
         }
         for name in paths:
             profile_path(name, runs[name])

@@ -84,7 +84,17 @@ def test_import_and_cli_help_stay_off_jax():
             "otslam_tpu_torch.mapping.grid_mapper",
             "otslam_tpu_torch.eval.baseline",
             "otslam_tpu_torch.eval.report",
-            "otslam_tpu_torch.eval.headline"} <= set(mods)
+            "otslam_tpu_torch.eval.headline",
+            "otslam_tpu_torch.adapters.native",
+            "otslam_tpu_torch.adapters.native_mission",
+            "otslam_tpu_torch.adapters.bus",
+            "otslam_tpu_torch.pipeline.online",
+            "otslam_tpu_torch.distributed.mesh",
+            "otslam_tpu_torch.distributed.comm",
+            "otslam_tpu_torch.distributed.launch",
+            "otslam_tpu_torch.distributed.sharding",
+            "otslam_tpu_torch.distributed.sparse",
+            "otslam_tpu_torch.distributed.dryrun"} <= set(mods)
     proc = run_py("import importlib, sys\n"
                   f"for m in {mods!r}: importlib.import_module(m)\n"
                   "print(sorted(m for m in sys.modules if m.split('.')[0] "
@@ -96,6 +106,27 @@ def test_import_and_cli_help_stay_off_jax():
         proc = run_py(CLI, *sub, "--help")
         assert "usage:" in proc.stdout
         assert not report(proc)["jax"]
+
+
+def test_native_sources_are_the_ports_own():
+    """The port builds its own copies of the host C++ sources (under
+    otslam_tpu_torch/native/, into build/), never the JAX package's
+    native/ directory or its libraries."""
+    from otslam_tpu_torch.adapters import native, native_mission
+    assert {p.name for p in (PKG / "native").glob("*.cpp")} == {
+        "otslam_native.cpp", "otslam_mission.cpp"}
+    assert native.NATIVE_SRC == PKG / "native"
+    assert native.BUILD_ROOT == ROOT / "build" / "otslam_tpu_torch_native"
+    assert not list((PKG / "csrc").glob("*.cpp"))
+    # no path into the repository's native/ directory, in any source
+    outside = re.compile(r"(?<!otslam_tpu_torch/)\bnative/|"
+                         r"libotslam_(native|mission)\.so|_REPO_ROOT")
+    offenders = [str(p) for p in PKG.rglob("*")
+                 if p.suffix in (".py", ".cpp", ".cu")
+                 and outside.search(p.read_text())]
+    assert not offenders
+    assert native_mission.load_mission_native.__module__ == \
+        "otslam_tpu_torch.adapters.native_mission"
 
 
 def test_precision_is_pinned():
@@ -235,6 +266,8 @@ ENTRY_POINTS = {
     "otslam_tpu_torch.mapping.initial_mapping": ["LidarClusterClassifier"],
     "otslam_tpu_torch.eval.baseline": ["dense_room_reconstruction"],
     "otslam_tpu_torch.eval.headline": ["headline_report"],
+    "otslam_tpu_torch.pipeline.online": ["OnlineFusion"],
+    "otslam_tpu_torch.adapters.bus": ["OTSLAMSystem"],
 }
 
 
@@ -268,6 +301,11 @@ def test_entry_points_default_to_the_card():
                              for k, d in pairs if k.arg == "device"}
     assert len(defaults) >= len(fns)
     assert {d for *_, d in defaults} == {"cuda"}, defaults
+    # the distributed paths take their device from the mesh: a CUDA mesh
+    # unless the caller asks for another
+    from otslam_tpu_torch.distributed.mesh import make_mesh
+    assert inspect.signature(make_mesh).parameters[
+        "device_type"].default == "cuda"
     if torch.cuda.is_available():
         assert resolve_device(None) == torch.device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
@@ -279,6 +317,8 @@ def test_without_cuda_the_defaults_raise(tmp_path):
     import numpy as np
 
     from otslam_tpu_torch import cli
+    from otslam_tpu_torch.adapters.bus import OTSLAMSystem
+    from otslam_tpu_torch.config import ReconstructionConfig
     from otslam_tpu_torch.core.camera import PinholeIntrinsics
     from otslam_tpu_torch.core.pointcloud import PointCloud
     from otslam_tpu_torch.device import resolve_device
@@ -289,6 +329,7 @@ def test_without_cuda_the_defaults_raise(tmp_path):
     from otslam_tpu_torch.mapping.initial_mapping import \
         LidarClusterClassifier
     from otslam_tpu_torch.mapping.virtual_scan import VirtualScanner
+    from otslam_tpu_torch.pipeline.online import OnlineFusion
     from otslam_tpu_torch.sim.runner import MissionRunner
     from otslam_tpu_torch.sim.sensors import render_lidar
     from otslam_tpu_torch.sim.world import cardboard_room
@@ -308,6 +349,8 @@ def test_without_cuda_the_defaults_raise(tmp_path):
                      np.ones((1, 3, 4)), np.ones((1, 3, 4, 3)),
                      np.eye(4)[None], intr, (0, 1, 0, 1, 0, 1)),
                  lambda: headline_report(str(tmp_path / "headline")),
+                 lambda: OnlineFusion(ReconstructionConfig(), intr),
+                 lambda: OTSLAMSystem(),
                  # the CLI commands' default device is the card too
                  lambda: cli.main(["check-frame", "--depth", "unused.png",
                                    "--out", "unused.ply"]),
