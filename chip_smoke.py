@@ -140,8 +140,23 @@ wrong:
    counts added; K3 in 11a's chamfer). After the count, the mips, K2, the
    pack and K1 against their plain versions at the second rank's shard,
    each shape added to its kernel's record.
+12. bench path: otslam_tpu_torch.bench.main("cuda") in this process at
+   full width (384 VGA cube frames into a 256^3, 1 cm volume; ICP at 50k
+   x 50k, windowed and full scan; perception at K = 64 ticks of 1440 beams
+   on a 208^2 map; mesh extraction of the 16-frame volume, dense 256^3,
+   block and 8 volumes batched). Its last line must say "complete", hold
+   every key of the bench's record, every rate finite, > 0 and under the
+   bench's ceilings, at those widths; the mips, K2, the pack, K1, K3, K4
+   and K5 must have launched. After the count, each against its plain
+   version at the bench's shapes, each shape added to its kernel's
+   record: the mips, K2, the pack and K1 on the 384-frame cube schedule
+   into the empty 256^3 volume (the fusion metric's call, every frame),
+   K3 and K4 on the first ICP iteration's operands (full scan, and the
+   windowed scan on the sorted clouds), K5 on the perception workload's
+   64 poses x 1440 beams. Prints the bench's record and the phase's
+   seconds.
 
-Each path (phases 4, 4b, 6, 8, 9, 10 and 11) is driven with the launch
+Each path (phases 4, 4b, 6, 8, 9, 10, 11 and 12) is driven with the launch
 counters set to 0 just before it and read just after. Every kernel's
 record carries two times: `ms`, CUDA events around the wrapper call (its
 host work included), and `kernel_ms`, the kernel alone in a
@@ -233,6 +248,9 @@ SYSTEM_TICKS = 100            # phase 10's OTSLAMSystem scans ...
 SYSTEM_SETTLE = 50            # ... the first ones at the mission's start
 SYSTEM_STEP = 0.05            # m a tick toward the box after them
 RANK_TIMEOUT = 600            # s, phase 11b's two-rank group
+BENCH_FRAMES = 384            # phase 12: the bench's fusion frames ...
+BENCH_POINTS = 50_000         # ... its ICP clouds' points ...
+BENCH_TICKS = 64              # ... and its perception ticks on the card
 
 
 class SmokeFailure(RuntimeError):
@@ -275,22 +293,29 @@ def kernel_ms(fn, reps: int, kernels):
     `kernels` (one name or several, summed), from a torch.profiler trace of
     `reps` calls after a warm-up: the kernels alone, without the wrapper's
     host time and the other launches that the event timing of cuda_ms
-    includes. None when the trace holds none of them."""
+    includes. A trace that holds none of them is taken once more (one
+    late in a run came back without the pack's launches, which a trace
+    of the same call alone holds), and logged; None when neither does."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     names = (kernels,) if isinstance(kernels, str) else kernels
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and any(
-              f"{k}(" in e.name or f"{k}<" in e.name for k in names)]
-    return sum(us) * 1e-3 / reps if us else None
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and any(
+                  f"{k}(" in e.name or f"{k}<" in e.name for k in names)]
+        if us:
+            return sum(us) * 1e-3 / reps
+        log(f"  kernel_ms: trace {attempt + 1} holds no {'/'.join(names)} "
+            "launch")
+    return None
 
 
 def fmt_ms(ms) -> str:
@@ -2266,6 +2291,108 @@ def rank_shapes(batch, intr, vol_cfg, dev, k2s, k1):
                     reps=10)
 
 
+def phase_bench():
+    """Phase 12: bench.main("cuda") in this process at full width, its
+    lines kept. Returns its last line, parsed, after the checks of the
+    module docstring."""
+    import io
+    import math
+
+    from otslam_tpu_torch import bench
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = bench.main("cuda")
+    lines = out.getvalue().splitlines()
+    check(code == 0 and bool(lines), f"bench.main returned {code}: "
+          f"{lines[-1] if lines else 'no output'}")
+    rec = json.loads(lines[-1])
+    log(f"bench record: {lines[-1]}")
+    check(rec.get("status") == "complete", f"bench status "
+          f"{rec.get('status')!r}")
+    missing = [k for keys in bench._METRIC_KEYS.values() for k in keys
+               if k not in rec]
+    check(not missing, f"the bench record lacks {missing}")
+    ok, why = bench.record_plausible(rec)
+    check(ok and 0 < rec["vs_baseline"] < math.inf,
+          f"the bench record fails its gate: {why}")
+    fc = rec["fusion_config"]
+    check(fc["n_frames"] == BENCH_FRAMES and fc["frame"] == [640, 480]
+          and fc["dims"] == [256, 256, 256] and fc["max_active"] is None,
+          f"the bench fused another workload: {fc}")
+    check(f"{BENCH_POINTS}x{BENCH_POINTS}" in rec["icp_unit"]
+          and f"K={BENCH_TICKS}" in rec["perception_unit"],
+          f"the bench ran another width: {rec['icp_unit']}, "
+          f"{rec['perception_unit']}")
+    log(f"phase 12: bench.main {time.perf_counter() - t0:.1f} s, "
+        f"{len(lines)} lines; fused {rec['value']} frames/s, ICP "
+        f"{rec['icp_iterations_per_sec']} iterations/s, perception "
+        f"{rec['perception_ticks_per_sec']} ticks/s, mesh "
+        f"{rec['mesh_extracts_per_sec']} / "
+        f"{rec['mesh_block_extracts_per_sec']} / "
+        f"{rec['mesh_batch_extracts_per_sec']} extractions/s "
+        f"(dense / block / batched)")
+    return rec
+
+
+def bench_shapes(dev, k2s, k1, k3, k4, k5):
+    """After phase 12's count: each kernel against its plain version at
+    the bench's shapes, each record added to its kernel's `shapes`: the
+    mips, K2, the pack and K1 on the fusion metric's call (the 384 cube
+    frames into an empty 256^3 volume, its whole work list), K3 and K4 on
+    the first ICP iteration's operands at 50k x 50k (the full scan's
+    call as ICP makes it; the windowed scan on the clouds as ICP sorts
+    them), K5 on the perception workload's 64 poses x 1440 beams."""
+    import torch
+
+    from otslam_tpu_torch import bench
+    from otslam_tpu_torch.config import LidarConfig, TSDFConfig
+    from otslam_tpu_torch.kernels import nn
+    from otslam_tpu_torch.kernels.icp import _setup
+    from otslam_tpu_torch.kernels.tsdf_block import make_block_volume
+    from otslam_tpu_torch.mapping.virtual_scan import VirtualScanner
+    t0 = time.perf_counter()
+    intr = bench.VGA
+    d, c, e = bench._make_frames(intr, BENCH_FRAMES, dev)
+    pairs, _ = schedule_shapes(
+        f"bench cube {BENCH_FRAMES} frames", make_block_volume(
+            TSDFConfig(), dev), d, c, e, intr, None, k2s, k1)
+    del d, c, e
+    src_np, dst_np = bench._icp_clouds(BENCH_POINTS)
+    window, axis = nn.auto_nn_window(src_np, dst_np, bench.ICP_THRESHOLD)
+    check(window * nn.DST_CHUNK < BENCH_POINTS, f"the bench's ICP window "
+          f"{window} covers the cloud: ICP would take K3")
+    src = torch.as_tensor(src_np, device=dev)
+    dst = torch.as_tensor(dst_np, device=dev)
+    kept: list = []
+    with k3_calls(every_call(kept)):
+        bench.run_icp(src, dst, 0)
+    check(len(kept) == 1, f"ICP's first iteration made {len(kept)} K3 "
+          "calls")
+    k3["shapes"].append(k3_shape(
+        f"bench ICP {BENCH_POINTS} x {BENCH_POINTS} full scan", *kept[0],
+        dev))
+    # the windowed run's first correspondence search, as ICP makes it
+    s, t, _, _, T0, _ = _setup(src, dst, None, None, None, window, axis)
+    p = s @ T0[:3, :3].T + T0[:3, 3]
+    ones = torch.ones(BENCH_POINTS, dtype=torch.bool, device=dev)
+    k4["shapes"].append(k4_shape(
+        nn, f"bench ICP {BENCH_POINTS} x {BENCH_POINTS} windowed", p, t,
+        ones, bench.ICP_THRESHOLD, axis, dev))
+    args = bench.perception_inputs(BENCH_TICKS, dev)
+    vs = VirtualScanner(LidarConfig(), device=dev)
+    vs.set_map(bench.perception_scene().occupancy_grid(0.05))
+    check(bool(torch.equal(vs.grid, args[0]))
+          and bool(torch.equal(vs.angles(), args[9])),
+          "the scanner's map or beams differ from the bench's")
+    k5["shapes"].append(k5_shape("bench perception room", vs,
+                                 args[7].cpu().numpy(), dev))
+    log(f"phase 12 shapes: {time.perf_counter() - t0:.1f} s; fusion "
+        f"{pairs} (block, frame) pairs, every frame; ICP window {window} "
+        f"chunks on axis {axis}; the mips, K2, the pack, K1, K3, K4 and K5 "
+        "bit-identical to their plain versions at the bench's shapes")
+
+
 def main() -> int:
     """Exit code 0 when every phase passed, 1 when a check failed
     (SmokeFailure, its message on stderr), 2 when the run cannot start
@@ -2291,7 +2418,7 @@ def main() -> int:
 
 
 def smoke() -> int:
-    """Phases 1-11 and 4b (the module docstring); raises SmokeFailure."""
+    """Phases 1-12 and 4b (the module docstring); raises SmokeFailure."""
     import torch
 
     from otslam_tpu_torch.config import ReconstructionConfig
@@ -2445,7 +2572,21 @@ def smoke() -> int:
           f"a kernel of the distributed path never launched: "
           f"{dist_launches}")
     rank_shapes(batch, intr, vol_cfg, dev, k2s, k1)
-    check("jax" not in sys.modules, "jax was imported")
+
+    # --- 12. bench path ---------------------------------------------------
+    for fn in counters:
+        fn.launches = 0
+    phase_bench()
+    torch.cuda.synchronize()
+    bench_launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"bench path launches {bench_launches}")
+    check(all(bench_launches[k] > 0
+              for k in fusion + ("nn_min", "nn_min_windowed", "ray_keys")),
+          f"a kernel of the bench path never launched: {bench_launches}")
+    bench_shapes(dev, k2s, k1, k3, k4, k5)
+    check("jax" not in sys.modules and "bench" not in sys.modules
+          and "bench_icp" not in sys.modules,
+          "jax or the JAX package's benchmark was imported")
 
     def counts(name):
         by_path = {"reconstruct": launches[name],
@@ -2454,7 +2595,8 @@ def smoke() -> int:
                    "mission": mis_launches[name],
                    "headline": hl_launches[name],
                    "online": on_launches[name],
-                   "distributed": dist_launches[name]}
+                   "distributed": dist_launches[name],
+                   "bench": bench_launches[name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 

@@ -11,6 +11,7 @@
   capture       rgbd_capture_node (one rendered frame into a dataset)
   report        eval/result_plot.py (summary table + bar charts)
   headline      the selective-vs-dense size/accuracy report
+  bench         bench.py: the four North-star workloads on the device
 
 Same flags as the JAX package's subcommands, plus ``--device`` where a
 command runs on a device. Run as
@@ -22,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -422,6 +424,11 @@ def _cmd_headline(args):
     print(json.dumps(rep, indent=2))
 
 
+def _cmd_bench(args):
+    from otslam_tpu_torch import bench
+    return bench.main(args.device)
+
+
 def _load_cfg(args):
     from otslam_tpu_torch.config import OTSLAMConfig
     if getattr(args, "config", None):
@@ -448,14 +455,17 @@ def main(argv=None):
     _add_device(p)
     _add_mission(sub)
     _add_eval_tools(sub)
+    _add_device(sub.add_parser("bench", help="fusion throughput benchmark"))
 
     args = ap.parse_args(argv)
-    {"reconstruct": _cmd_reconstruct, "check-frame": _cmd_check_frame,
-     "probe-depth": _cmd_probe_depth, "trajectory": _cmd_trajectory,
-     "hybrid-map": _cmd_hybrid_map, "merge-2d": _cmd_merge_2d,
-     "eval": _cmd_eval, "mission": _cmd_mission, "capture": _cmd_capture,
-     "report": _cmd_report, "headline": _cmd_headline}[args.cmd](args)
+    return {"reconstruct": _cmd_reconstruct,
+            "check-frame": _cmd_check_frame,
+            "probe-depth": _cmd_probe_depth, "trajectory": _cmd_trajectory,
+            "hybrid-map": _cmd_hybrid_map, "merge-2d": _cmd_merge_2d,
+            "eval": _cmd_eval, "mission": _cmd_mission,
+            "capture": _cmd_capture, "report": _cmd_report,
+            "headline": _cmd_headline, "bench": _cmd_bench}[args.cmd](args)
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

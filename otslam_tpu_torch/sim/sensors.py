@@ -179,6 +179,12 @@ def render_rgbd(scene: Scene, cam_pose_world: np.ndarray,
     return depth, color
 
 
+def render_depth(scene: Scene, cam_pose_world: np.ndarray,
+                 intr: PinholeIntrinsics, **kw) -> torch.Tensor:
+    """The depth of render_rgbd (same keywords)."""
+    return render_rgbd(scene, cam_pose_world, intr, **kw)[0]
+
+
 # ---------------------------------------------------------------------------
 # 2D LiDAR
 # ---------------------------------------------------------------------------

@@ -62,7 +62,8 @@ def report(proc) -> dict:
 
 
 def test_sources_never_import_jax_or_the_jax_package():
-    bad = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|otslam_tpu)\b", re.M)
+    bad = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|otslam_tpu|bench|"
+                     r"bench_icp)\b", re.M)
     offenders = [str(p) for p in PKG.rglob("*.py") if bad.search(p.read_text())]
     assert not offenders
 
@@ -95,14 +96,15 @@ def test_import_and_cli_help_stay_off_jax():
             "otslam_tpu_torch.distributed.sharding",
             "otslam_tpu_torch.distributed.sparse",
             "otslam_tpu_torch.distributed.dryrun"} <= set(mods)
+    assert "otslam_tpu_torch.bench" in mods
     proc = run_py("import importlib, sys\n"
                   f"for m in {mods!r}: importlib.import_module(m)\n"
                   "print(sorted(m for m in sys.modules if m.split('.')[0] "
-                  "in ('jax', 'otslam_tpu')))")
+                  "in ('jax', 'otslam_tpu', 'bench', 'bench_icp')))")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
     for sub in ([], ["reconstruct"], ["eval"], ["mission"], ["capture"],
-                ["report"], ["headline"]):
+                ["report"], ["headline"], ["bench"]):
         proc = run_py(CLI, *sub, "--help")
         assert "usage:" in proc.stdout
         assert not report(proc)["jax"]
@@ -178,18 +180,20 @@ for i in range(8):
     assert not r["jax"] and r["launches"] == [0] * 7
 
 
-def test_unported_options_raise(capsys):
-    from otslam_tpu_torch import cli
+def test_unported_options_raise(monkeypatch):
+    from otslam_tpu_torch import bench, cli
     from otslam_tpu_torch.config import ReconstructionConfig
     from otslam_tpu_torch.pipeline.reconstruct import (fuse_frames,
                                                        reconstruct_frames)
     with pytest.raises(ValueError, match="backend"):
         fuse_frames([], [], [], None, ReconstructionConfig(), backend="xla",
                     device="cpu")
-    # the benchmark is not ported yet: its command is refused
-    with pytest.raises(SystemExit):
-        cli.main(["bench"])
-    assert "invalid choice: 'bench'" in capsys.readouterr().err
+    # the benchmark command reaches bench.main with its device and returns
+    # its exit code
+    seen = []
+    monkeypatch.setattr(bench, "main", lambda device: seen.append(device) or 7)
+    assert cli.main(["bench", "--device", "cpu"]) == 7
+    assert seen == ["cpu"]
     with pytest.raises(ValueError, match="output"):
         reconstruct_frames(None, None, output="voxels", device="cpu")
     with pytest.raises(ValueError, match="refine"):
@@ -268,6 +272,8 @@ ENTRY_POINTS = {
     "otslam_tpu_torch.eval.headline": ["headline_report"],
     "otslam_tpu_torch.pipeline.online": ["OnlineFusion"],
     "otslam_tpu_torch.adapters.bus": ["OTSLAMSystem"],
+    "otslam_tpu_torch.bench": ["main", "measure_fusion", "measure_icp",
+                               "measure_perception_ticks", "measure_mesh"],
 }
 
 
@@ -357,7 +363,8 @@ def test_without_cuda_the_defaults_raise(tmp_path):
                  lambda: cli.main(["capture", "--workdir",
                                    str(tmp_path / "ds"), "--pose", "0,0,0"]),
                  lambda: cli.main(["headline", "--workdir",
-                                   str(tmp_path / "headline")])):
+                                   str(tmp_path / "headline")]),
+                 lambda: cli.main(["bench"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert not list(tmp_path.iterdir())

@@ -20,6 +20,7 @@ from otslam_tpu.eval.scenarios import scenario_gt as j_scenario_gt
 from otslam_tpu.pipeline.dataset import CaptureDataset as JDataset
 from otslam_tpu.pipeline.reconstruct import reconstruct_object as j_reconstruct
 from otslam_tpu.sim.sensors import look_at_pose
+from otslam_tpu.sim.sensors import render_depth as j_render_depth
 from otslam_tpu.sim.sensors import render_rgbd as j_render
 from otslam_tpu.sim.world import cardboard_room as j_room
 from otslam_tpu_torch.config import OTSLAMConfig
@@ -29,6 +30,7 @@ from otslam_tpu_torch.eval.scenarios import scenario_gt
 from otslam_tpu_torch.kernels.nn import chamfer_metrics
 from otslam_tpu_torch.pipeline.dataset import CaptureDataset
 from otslam_tpu_torch.pipeline.reconstruct import reconstruct_object
+from otslam_tpu_torch.sim import render_depth
 from otslam_tpu_torch.sim.sensors import render_rgbd
 from otslam_tpu_torch.sim.world import cardboard_room
 from torch_parity import BOX_CENTER, J_SMALL, SMALL_CAM, T_SMALL
@@ -57,6 +59,15 @@ def test_render_rgbd_matches_jax():
         np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0,
                                    atol=1e-5)
         np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        # render_depth is render_rgbd's depth, in both packages
+        tdd = render_depth(cardboard_room(), pose, T_SMALL, far=5.0,
+                           device="cpu")
+        assert torch.equal(tdd, td)
+        np.testing.assert_array_equal(
+            np.asarray(j_render_depth(j_room(), pose, J_SMALL, far=5.0)),
+            np.asarray(jd))
+        np.testing.assert_allclose(tdd.numpy(), np.asarray(jd), rtol=0,
+                                   atol=1e-5)
 
 
 @pytest.fixture(scope="module")
