@@ -154,10 +154,37 @@ wrong:
    K3 and K4 on the first ICP iteration's operands (full scan, and the
    windowed scan on the sorted clouds), K5 on the perception workload's
    64 poses x 1440 beams. Prints the bench's record and the phase's
-   seconds.
+   seconds;
+13. production path: MISSION_r04.json's three commands through the port's
+   CLI code at full width: cli.mission_runner on the parsed arguments of
+   `mission --scenario full --perception-batch 64 --localizer --odom-noise
+   0.01 --removed --start 0.5,4.5,0.0 --max-ticks 12000` (VGA, 1440
+   beams, the update-pipeline tracker; run once, the kernels are warm),
+   then cli.main(["reconstruct", ..., "--auto-origin"]) over its dataset
+   and cli.main(["headline", "--scenario", "full", "--objects-dir", ...,
+   "--room-frames", "48"]). Gates, tests/test_full_mission.py's checks and
+   the report's own: >= 4 missions, >= 3 labels and frames >= labels; the
+   largest stable group has >= 4 members, one label orbits a chair
+   (centre within 0.7 m, radius < 1.8 m) and one the table site (radius <
+   2.3 m); a removed check visited and a removed stable object within 1 m
+   of (4, -4); the final pose estimate within 0.25 m of the true pose;
+   every Object_* cloud non-empty and finite (a Removed_* cloud may be
+   empty: its count is printed); the report holds all 8 objects, every
+   scanned one associated with a cloud, and a size reduction >= 90 %. The
+   mips, K2, the pack, K1, K3 and K5 must have launched (K4 recorded).
+   Prints ticks, ticks/s, missions and labels, each object's frames,
+   points and auto-sized volume dims, the report, and the stage seconds.
+   After the count, each kernel against its plain version at the phase's
+   shapes, each shape added to its kernel's record: the mips, K2, the
+   pack and K1 on the capture batch of the largest auto-sized object
+   volume (ties: the most frames) into that volume; K3 on the first K3
+   call of the mission's
+   first localization (its start pose on the saved map) and at the
+   headline's largest calls; K5 on the mission's 64-tick perception batch
+   with the most distinct poses, on its saved map.
 
-Each path (phases 4, 4b, 6, 8, 9, 10, 11 and 12) is driven with the launch
-counters set to 0 just before it and read just after. Every kernel's
+Each path (phases 4, 4b, 6, 8, 9, 10, 11, 12 and 13) is driven with the
+launch counters set to 0 just before it and read just after. Every kernel's
 record carries two times: `ms`, CUDA events around the wrapper call (its
 host work included), and `kernel_ms`, the kernel alone in a
 torch.profiler trace (K3/K4: the scan and, for a split launch, the
@@ -251,6 +278,19 @@ RANK_TIMEOUT = 600            # s, phase 11b's two-rank group
 BENCH_FRAMES = 384            # phase 12: the bench's fusion frames ...
 BENCH_POINTS = 50_000         # ... its ICP clouds' points ...
 BENCH_TICKS = 64              # ... and its perception ticks on the card
+# phase 13: MISSION_r04.json's first command (its --workdir given here; its
+# --repeat 2, a TPU compile warm-up, left out: phases 1-12 have built and
+# warmed every kernel) ...
+PRODUCTION_MISSION = ("mission", "--scenario", "full", "--perception-batch",
+                      "64", "--localizer", "--odom-noise", "0.01",
+                      "--removed", "--start", "0.5,4.5,0.0", "--max-ticks",
+                      "12000")
+PRODUCTION_ROOM_FRAMES = 48   # ... and its headline's --room-frames
+TABLE_SITE = (-2.23, -3.31)   # full_room's table and chairs (m), as
+CHAIR_SITES = ((-1.71, -2.1), (-2.72, -2.1), (-1.68, -4.7), (-2.84, -4.7))
+REMOVED_SITE = (4.0, -4.0)    # tests/test_full_mission.py holds them; the
+POSE_TOLERANCE = 0.25         # phantom box; the final estimate's error (m)
+FULL_ROOM_OBJECTS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -2393,6 +2433,239 @@ def bench_shapes(dev, k2s, k1, k3, k4, k5):
         "bit-identical to their plain versions at the bench's shapes")
 
 
+def production_mission(dev, workdir: str, argv=PRODUCTION_MISSION):
+    """Phase 13's mission: cli.mission_runner on the parsed arguments of
+    `argv`, run once. Returns (args, runner, summary, seconds, believed
+    poses of the perception batch of the full size with the most distinct
+    poses)."""
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch import cli
+    args = cli.build_parser().parse_args(
+        [*argv, "--workdir", workdir, "--device", str(dev)])
+    runner = cli.mission_runner(args, workdir, dev)
+    kept = []
+    run_batch = runner._run_tick_batch
+
+    def keep(reals, believed, times, true_poses=None):
+        if len(times) == args.perception_batch:
+            distinct = len(np.unique(np.asarray(believed), axis=0))
+            if not kept or distinct > kept[0]:
+                kept[:] = [distinct, np.array(believed, np.float32)]
+        return run_batch(reals, believed, times, true_poses)
+
+    runner._run_tick_batch = keep
+    t0 = time.perf_counter()
+    summary = runner.run(max_ticks=args.max_ticks)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del runner._run_tick_batch
+    check(bool(kept), f"no perception batch of {args.perception_batch} "
+          "ticks")
+    log(f"  mission batch kept for K5: {args.perception_batch} poses, "
+        f"{kept[0]} distinct")
+    return args, runner, summary, seconds, kept[1]
+
+
+def capture_orbits(dataset: str, labels) -> dict:
+    """Each label's (centre, mean radius) of its believed capture
+    positions on disk, as tests/test_full_mission.py measures them."""
+    import glob
+
+    import numpy as np
+    orbits = {}
+    for label in labels:
+        ps = [np.loadtxt(f) for f in sorted(glob.glob(
+            os.path.join(dataset, "poses", f"{label}_*.txt")))]
+        c = np.mean([p[:2, 3] for p in ps], axis=0)
+        orbits[label] = (c, float(np.mean([np.linalg.norm(p[:2, 3] - c)
+                                           for p in ps])))
+    return orbits
+
+
+def phase_production(dev, workdir: str, mission_argv=PRODUCTION_MISSION,
+                     room_frames: int = PRODUCTION_ROOM_FRAMES):
+    """Phase 13 (the module docstring): MISSION_r04's three commands
+    through the port's CLI code, each result logged, then the gates.
+    Returns what production_shapes checks after the phase: the runner and
+    its args, the largest auto-sized object volume (label, config), the
+    operands of the headline's largest K3 calls and the mission's kept
+    perception batch."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch import cli
+    from otslam_tpu_torch.config import OTSLAMConfig
+    from otslam_tpu_torch.core import io as tio
+    from otslam_tpu_torch.core.camera import PinholeIntrinsics
+    from otslam_tpu_torch.pipeline.dataset import CaptureDataset
+    from otslam_tpu_torch.pipeline.reconstruct import auto_volume_config
+
+    stages = {}
+    args, runner, summary, stages["mission"], batch_poses = \
+        production_mission(dev, os.path.join(workdir, "mission"),
+                           mission_argv)
+    ticks = len(runner.trace)
+    ex, ey, _ = runner.pose_estimate
+    pose_err = float(np.hypot(ex - runner.x, ey - runner.y))
+    visited = sorted(runner.sender.visited_removed_ids)
+    log(f"production mission: {ticks} ticks in {stages['mission']:.2f} s "
+        f"({ticks / stages['mission']:.2f} ticks/s), "
+        f"{summary.missions_completed} missions, {summary.frames_captured} "
+        f"frames, labels {summary.labels}, stable objects "
+        f"{summary.stable_objects}, removed checks visited {visited}, sim "
+        f"time {summary.sim_time:.1f} s; final pose estimate error "
+        f"{pose_err:.4f} m (the trace holds no estimate, so no largest "
+        "error over it)")
+
+    dataset = os.path.join(workdir, "mission", "dataset")
+    objdir = os.path.join(dataset, "3d_reconst")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["reconstruct", "--dataset", dataset, "--auto-origin",
+                  "--device", str(dev)])
+    torch.cuda.synchronize()
+    stages["reconstruct"] = time.perf_counter() - t0
+    cfg = OTSLAMConfig()
+    intr = PinholeIntrinsics.from_config(cfg.camera)
+    ds = CaptureDataset(dataset, cfg.camera)
+    clouds, volumes = {}, {}
+    for line in buf.getvalue().splitlines():
+        name = line.split(":")[0]
+        pts = tio.read_ply(os.path.join(objdir, f"{name}.ply"))["points"]
+        batch = ds.load_object(name)
+        tsdf = auto_volume_config(batch, intr, cfg.reconstruction).tsdf
+        clouds[name] = pts
+        volumes[name] = (int(np.prod(tsdf.dims)), len(batch.depths), tsdf)
+        log(f"  reconstruct {line.strip()}; auto-sized volume dims "
+            f"{tsdf.dims}")
+    # the largest volume; among equal ones, the most frames
+    largest = max(volumes, key=lambda n: volumes[n][:2])
+
+    crops: dict = {}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with k3_calls(largest_pairs(crops, dev)), \
+            contextlib.redirect_stdout(buf):
+        cli.main(["headline", "--workdir", os.path.join(workdir, "headline"),
+                  "--scenario", "full", "--objects-dir", objdir,
+                  "--room-frames", str(room_frames), "--device", str(dev)])
+    torch.cuda.synchronize()
+    stages["headline"] = time.perf_counter() - t0
+    rep = json.loads(buf.getvalue())
+    log("production headline: " + json.dumps(
+        {k: v for k, v in rep.items() if k != "objects"}))
+    for name, entry in rep["objects"].items():
+        log(f"  headline {name}: {json.dumps(entry)}")
+    log("production stages (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()))
+    production_gates(runner, summary, dataset, pose_err, clouds, rep)
+    return (args, runner, (largest, volumes[largest][2]), crops,
+            batch_poses)
+
+
+def production_gates(runner, summary, dataset, pose_err, clouds, rep):
+    """Phase 13's gates: tests/test_full_mission.py's checks and the
+    report's own."""
+    import numpy as np
+    check(summary.missions_completed >= 4 and len(summary.labels) >= 3
+          and summary.frames_captured >= len(summary.labels),
+          f"production mission: {summary.missions_completed} missions, "
+          f"labels {summary.labels}, {summary.frames_captured} frames")
+    group = max(runner.tracker.stable_objects, key=lambda s: len(s.members))
+    check(len(group.members) >= 4, f"the largest stable group has "
+          f"{len(group.members)} members")
+    orbits = capture_orbits(dataset, summary.labels)
+
+    def near(target, r_max):
+        return any(np.linalg.norm(c - np.asarray(target)) < 0.7
+                   and r < r_max for c, r in orbits.values())
+    check(any(near(ch, 1.8) for ch in CHAIR_SITES),
+          f"no label orbits a chair: {orbits}")
+    check(near(TABLE_SITE, 2.3), f"no label orbits the table: {orbits}")
+    check(len(runner.sender.visited_removed_ids) >= 1,
+          "no removed check was visited")
+    check(any(np.hypot(s.cx - REMOVED_SITE[0], s.cy - REMOVED_SITE[1]) < 1.0
+              for s in runner.removed_tracker.stable_objects),
+          "no removed stable object near the phantom box")
+    check(pose_err < POSE_TOLERANCE, f"final pose estimate {pose_err:.4f} m "
+          f"off the true pose")
+    for name, pts in clouds.items():
+        if name.startswith("Removed_"):
+            log(f"  {name}: {len(pts)} points (its site is empty)")
+            continue
+        check(len(pts) > 0 and bool(np.isfinite(pts).all()),
+              f"{name}: empty or non-finite cloud")
+    check(any(n.startswith("Object_") for n in clouds),
+          f"no Object_* cloud among {sorted(clouds)}")
+    objs = rep["objects"]
+    check(len(objs) == FULL_ROOM_OBJECTS, f"the headline holds "
+          f"{len(objs)} objects: {sorted(objs)}")
+    unassociated = [n for n, e in objs.items()
+                    if e.get("scanned", True) and "cloud" not in e]
+    check(not unassociated, f"scanned objects without a cloud: "
+          f"{unassociated}")
+    check(rep["size_reduction_percent"] >= 90.0,
+          f"size reduction {rep['size_reduction_percent']} % < 90 %")
+
+
+def production_shapes(dev, args, runner, largest, crops, batch_poses, k2s,
+                      k1, k3, k5):
+    """After phase 13's count: each kernel against its plain version at the
+    phase's shapes, each record added to its kernel's `shapes`: the mips,
+    K2, the pack and K1 on the capture batch of the largest auto-sized
+    object volume (ties: the most frames) into that volume; K3 on the first K3 call of the
+    mission's first localization (its start pose, odometry exact, on the
+    saved map) and at the headline's largest calls; K5 on the mission's
+    kept 64-pose batch on its saved map."""
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch.config import OTSLAMConfig
+    from otslam_tpu_torch.core.camera import PinholeIntrinsics
+    from otslam_tpu_torch.mapping.localize import ScanLocalizer
+    from otslam_tpu_torch.pipeline.dataset import CaptureDataset
+    from otslam_tpu_torch.sim.sensors import render_lidar
+    t0 = time.perf_counter()
+    cfg = OTSLAMConfig()
+    intr = PinholeIntrinsics.from_config(cfg.camera)
+    label, tsdf = largest
+    batch = CaptureDataset(os.path.join(runner.workdir, "dataset"),
+                           cfg.camera).load_object(label)
+    d, c, e = (torch.as_tensor(np.asarray(x, np.float32), device=dev)
+               for x in (batch.depths, batch.colors, batch.extrinsics))
+    fusion_shapes(f"production {label} {len(d)} frames into {tsdf.dims}",
+                  tsdf, d, c, e, intr, None, k2s, k1)
+    del d, c, e, batch
+    start = tuple(float(v) for v in args.start.split(","))
+    angles = runner.vscanner.angles()
+    scan = render_lidar(runner.scene_world, *start, angles,
+                        runner.cfg.lidar.range_min,
+                        runner.cfg.lidar.range_max, device=dev)
+    loc = ScanLocalizer(runner.vscanner._map, device=dev)
+    seen: list = []
+    with k3_calls(every_call(seen)):
+        loc.localize(scan, angles, start)
+    check(bool(seen), "the localizer made no K3 call")
+    src, dst, mask = seen[0]
+    k3["shapes"].append(k3_shape(
+        f"production localizer {src.shape[0]} x {dst.shape[0]}", src, dst,
+        mask, dev))
+    for key, (_, src, dst, mask) in sorted(crops.items()):
+        k3["shapes"].append(k3_shape(
+            f"production headline {src.shape[0]} x {dst.shape[0]} ({key})",
+            src, dst, mask, dev))
+    k5["shapes"].append(k5_shape("full_room mission batch", runner.vscanner,
+                                 batch_poses, dev))
+    log(f"phase 13 shapes: {time.perf_counter() - t0:.1f} s; the mips, K2, "
+        "the pack, K1, K3 and K5 bit-identical to their plain versions at "
+        "the production path's shapes")
+
+
 def main() -> int:
     """Exit code 0 when every phase passed, 1 when a check failed
     (SmokeFailure, its message on stderr), 2 when the run cannot start
@@ -2418,7 +2691,7 @@ def main() -> int:
 
 
 def smoke() -> int:
-    """Phases 1-12 and 4b (the module docstring); raises SmokeFailure."""
+    """Phases 1-13 and 4b (the module docstring); raises SmokeFailure."""
     import torch
 
     from otslam_tpu_torch.config import ReconstructionConfig
@@ -2584,6 +2857,21 @@ def smoke() -> int:
               for k in fusion + ("nn_min", "nn_min_windowed", "ray_keys")),
           f"a kernel of the bench path never launched: {bench_launches}")
     bench_shapes(dev, k2s, k1, k3, k4, k5)
+
+    # --- 13. production path ---------------------------------------------
+    for fn in counters:
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        production = phase_production(dev, tmp)
+        torch.cuda.synchronize()
+        prod_launches = {fn.__name__: fn.launches for fn in counters}
+        log(f"production path launches {prod_launches}")
+        check(all(prod_launches[k] > 0
+                  for k in fusion + ("nn_min", "ray_keys")),
+              f"a kernel of the production path never launched: "
+              f"{prod_launches}")
+        production_shapes(dev, *production, k2s, k1, k3, k5)
+    del production
     check("jax" not in sys.modules and "bench" not in sys.modules
           and "bench_icp" not in sys.modules,
           "jax or the JAX package's benchmark was imported")
@@ -2596,7 +2884,8 @@ def smoke() -> int:
                    "headline": hl_launches[name],
                    "online": on_launches[name],
                    "distributed": dist_launches[name],
-                   "bench": bench_launches[name]}
+                   "bench": bench_launches[name],
+                   "production": prod_launches[name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 

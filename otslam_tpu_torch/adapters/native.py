@@ -3,12 +3,13 @@ otslam_tpu/adapters/native.py).
 
 The port keeps its own copy of the C++ source, `otslam_tpu_torch/native/
 otslam_native.cpp`, and builds it on first use with g++ into
-``build/otslam_tpu_torch_native/<hash of source and flags>/`` at the root of
-the checkout, writing the library by atomic rename (as kernels/_build.py
-does for nvcc), so two processes that build at once never share a
-half-written file. The flags leave out the JAX build's -march=native, so a
-library built on one machine runs on any x86-64 host that shares the
-checkout. Every entry point has a NumPy fallback for a machine
+``otslam_tpu_torch_native/<hash of source and flags>/`` in the build root
+(build_dirs.py: the checkout's ``build/``, or the user's cache directory
+for an installed package; one that cannot be written raises), writing
+the library by atomic rename (as kernels/_build.py does for nvcc), so two
+processes that build at once never share a half-written file. The flags
+leave out the JAX build's -march=native, so a library built on one machine
+runs on any x86-64 host that shares the checkout. Every entry point has a NumPy fallback for a machine
 without g++; `native_available()` says which one is in use. The FrameRing
 is the sensor -> device frame queue: a C++ SPSC ring with drop-oldest
 semantics (depth-1-QoS behaviour) whose buffers the capture thread fills
@@ -30,9 +31,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from otslam_tpu_torch.build_dirs import build_root, make_build_dir
+
 NATIVE_SRC = Path(__file__).resolve().parents[1] / "native"
-BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
-              / "otslam_tpu_torch_native")
+BUILD_ROOT = build_root() / "otslam_tpu_torch_native"
 NATIVE_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lib = None
@@ -53,7 +55,7 @@ def build_host_library(src: Path, flags: list[str]) -> Path | None:
     gxx = shutil.which("g++")
     if gxx is None:
         return None
-    out_dir.mkdir(parents=True, exist_ok=True)
+    make_build_dir(out_dir)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         tmp_lib = str(Path(tmp) / lib_path.name)
         try:

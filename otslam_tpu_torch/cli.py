@@ -437,7 +437,8 @@ def _load_cfg(args):
     return OTSLAMConfig()
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The parser of every subcommand (main parses with it)."""
     ap = argparse.ArgumentParser(prog="python -m otslam_tpu_torch.cli",
                                  description="OTSLAM on PyTorch/CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -456,8 +457,11 @@ def main(argv=None):
     _add_mission(sub)
     _add_eval_tools(sub)
     _add_device(sub.add_parser("bench", help="fusion throughput benchmark"))
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     return {"reconstruct": _cmd_reconstruct,
             "check-frame": _cmd_check_frame,
             "probe-depth": _cmd_probe_depth, "trajectory": _cmd_trajectory,

@@ -8,9 +8,10 @@ interface, which is loaded with ctypes:
          -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o      (one per source)
     nvcc -shared -o build/otslam_tpu_torch/<hash>/lib...so *.o
 
-The library lands under ``build/`` at the root of the checkout, in a
-directory named by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is reused.
+The library lands under ``otslam_tpu_torch/`` in the build root
+(build_dirs.py: the checkout's ``build/``, or the user's cache directory
+for an installed package), in a directory named by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one is reused.
 
 ``-fmad=false``: a fused multiply-add would round differently from the
 plain PyTorch versions (flipping ``rint(u)`` at .5, the band comparisons,
@@ -36,8 +37,10 @@ from pathlib import Path
 
 import torch
 
+from otslam_tpu_torch.build_dirs import build_root, make_build_dir
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "otslam_tpu_torch"
+BUILD_ROOT = build_root() / "otslam_tpu_torch"
 LIB_NAME = "libotslam_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -117,7 +120,7 @@ def load() -> ctypes.CDLL:
                 "nvcc not found (PATH, CUDA_HOME): the otslam_tpu_torch CUDA "
                 "kernels are built from csrc/ on first use and need the CUDA "
                 "toolkit; CPU tensors take the plain PyTorch path instead")
-        out_dir.mkdir(parents=True, exist_ok=True)
+        make_build_dir(out_dir)
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             objs = [str(Path(tmp) / f"{s.stem}.o") for s in srcs]

@@ -5,10 +5,14 @@ the virtual scan converts to map-frame wall points; any candidate object
 point within ``proximity_threshold`` (default 0.5 m) of a wall point is
 dropped. The C++ brute-force O(N*M) scan becomes the nearest-neighbour
 search (kernel K3 on the card). StaticWallFilter gates the removed-evidence
-stream on the host (numpy and scipy, copied).
+stream on the host in numpy: the JAX package's scipy.ndimage calls (label,
+find_objects, binary_dilation) become a breadth-first search over the
+occupied cells and shifted ORs, with the same mask.
 """
 
 from __future__ import annotations
+
+from collections import deque
 
 import numpy as np
 import torch
@@ -76,24 +80,19 @@ class StaticWallFilter:
 
     def __init__(self, grid, wall_extent_m: float = 2.0,
                  margin_m: float = 0.3):
-        from scipy import ndimage
-
         data = grid._host_data()
         res = float(grid.resolution)
         occ = data == 100
-        labels, num = ndimage.label(occ)
         wall = np.zeros_like(occ)
-        for k, sl in enumerate(ndimage.find_objects(labels), start=1):
-            if sl is None:
-                continue
-            h = (sl[0].stop - sl[0].start) * res
-            w = (sl[1].stop - sl[1].start) * res
+        for rows, cols in _components(occ):
+            h = (rows.max() - rows.min() + 1) * res
+            w = (cols.max() - cols.min() + 1) * res
             if max(h, w) >= wall_extent_m:
                 # only this component's cells — the wall RING's bbox spans
                 # the whole map and would otherwise swallow every object
-                wall[sl] |= labels[sl] == k
+                wall[rows, cols] = True
         it = max(1, int(np.ceil(margin_m / res)))
-        self._mask = ndimage.binary_dilation(wall, iterations=it)
+        self._mask = _dilate_cross(wall, it)
         self._res = res
         self._ox = float(grid.origin[0])
         self._oy = float(grid.origin[1])
@@ -111,3 +110,43 @@ class StaticWallFilter:
         hit = np.zeros(len(pts), bool)
         hit[inside] = self._mask[i[inside], j[inside]]
         return pts[~hit]
+
+
+def _components(occ: np.ndarray):
+    """The 4-connected components of a boolean grid (scipy.ndimage.label's
+    default cross structure), each as (rows, cols) index arrays, found by a
+    breadth-first search from each unvisited occupied cell in raster
+    order."""
+    h, w = occ.shape
+    seen = np.zeros_like(occ)
+    out = []
+    for r0, c0 in zip(*np.nonzero(occ)):
+        if seen[r0, c0]:
+            continue
+        seen[r0, c0] = True
+        queue, cells = deque([(r0, c0)]), []
+        while queue:
+            r, c = queue.popleft()
+            cells.append((r, c))
+            for rr, cc in ((r - 1, c), (r + 1, c), (r, c - 1), (r, c + 1)):
+                if 0 <= rr < h and 0 <= cc < w and occ[rr, cc] \
+                        and not seen[rr, cc]:
+                    seen[rr, cc] = True
+                    queue.append((rr, cc))
+        rows, cols = np.asarray(cells).T
+        out.append((rows, cols))
+    return out
+
+
+def _dilate_cross(mask: np.ndarray, iterations: int) -> np.ndarray:
+    """scipy.ndimage.binary_dilation(mask, iterations=iterations) with its
+    default cross structure and border_value=0: each pass ORs the mask with
+    its four one-cell shifts, cells outside the grid counting as False."""
+    out = mask.copy()
+    for _ in range(iterations):
+        prev = out.copy()
+        out[1:] |= prev[:-1]
+        out[:-1] |= prev[1:]
+        out[:, 1:] |= prev[:, :-1]
+        out[:, :-1] |= prev[:, 1:]
+    return out

@@ -68,6 +68,21 @@ def test_sources_never_import_jax_or_the_jax_package():
     assert not offenders
 
 
+def test_sources_never_import_scipy():
+    """The port declares no scipy (pyproject's torch extra is torch alone):
+    StaticWallFilter computes its mask in numpy."""
+    bad = re.compile(r"^\s*(from|import)\s+scipy\b", re.M)
+    assert not [str(p) for p in PKG.rglob("*.py") if bad.search(p.read_text())]
+    proc = run_py("import sys\n"
+                  "from otslam_tpu_torch.mapping.object_filter import "
+                  "StaticWallFilter\n"
+                  "from otslam_tpu_torch.sim.world import full_room\n"
+                  "StaticWallFilter(full_room().occupancy_grid(0.05))\n"
+                  "print('scipy' in sys.modules)")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "False"
+
+
 def test_import_and_cli_help_stay_off_jax():
     mods = sorted("otslam_tpu_torch." + ".".join(p.relative_to(PKG)
                                                  .with_suffix("").parts)
@@ -129,6 +144,111 @@ def test_native_sources_are_the_ports_own():
     assert not offenders
     assert native_mission.load_mission_native.__module__ == \
         "otslam_tpu_torch.adapters.native_mission"
+
+
+KERNEL_SOURCES = {f"otslam_tpu_torch/csrc/{p.name}"
+                  for p in (PKG / "csrc").glob("*.cu")} | {
+    f"otslam_tpu_torch/native/{p.name}" for p in (PKG / "native").glob("*.cpp")}
+
+
+def test_wheel_carries_every_kernel_and_host_source(tmp_path):
+    """A wheel built offline from the tree (MANIFEST.in) holds the six CUDA
+    sources and the two host C++ sources that the installed package
+    builds from."""
+    import shutil
+    import zipfile
+    assert len(KERNEL_SOURCES) == 8
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in ("pyproject.toml", "MANIFEST.in", "README.md"):
+        shutil.copy(ROOT / name, src / name)
+    shutil.copytree(PKG, src / "otslam_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pip", "wheel", str(src), "--no-deps",
+         "--no-build-isolation", "--no-index", "-q", "-w",
+         str(tmp_path / "dist")], capture_output=True, text=True,
+        timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    (wheel,) = (tmp_path / "dist").glob("*.whl")
+    names = set(zipfile.ZipFile(wheel).namelist())
+    assert KERNEL_SOURCES <= names
+
+
+# imports the package from a copy outside any checkout and reports where
+# both libraries would build
+BUILD_ROOTS = """
+import json, sys
+from otslam_tpu_torch.adapters import native
+from otslam_tpu_torch.kernels import _build
+from otslam_tpu_torch.build_dirs import make_build_dir
+make_build_dir(_build.BUILD_ROOT)
+print(json.dumps({"kernels": str(_build.BUILD_ROOT),
+                  "native": str(native.BUILD_ROOT),
+                  "csrc": str(_build.CSRC), "src": str(native.NATIVE_SRC),
+                  "jax": sorted(m for m in sys.modules if m.split(".")[0]
+                                in ("jax", "otslam_tpu"))}))
+"""
+
+
+@pytest.mark.parametrize("cache", ["xdg", "home"])
+def test_installed_copy_builds_in_the_user_cache(cache, tmp_path):
+    """Outside a checkout both build roots resolve to the user's cache
+    directory ($XDG_CACHE_HOME, else ~/.cache), which is created and
+    writable; the sources stay the package's own."""
+    import shutil
+    site = tmp_path / "site"
+    shutil.copytree(PKG, site / "otslam_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = dict(os.environ, PYTHONPATH=str(site), HOME=str(tmp_path / "home"))
+    env.pop("XDG_CACHE_HOME", None)
+    if cache == "xdg":
+        env["XDG_CACHE_HOME"] = str(tmp_path / "xdg")
+    proc = subprocess.run([sys.executable, "-c", BUILD_ROOTS], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    roots = json.loads(proc.stdout)
+    base = (tmp_path / "xdg" if cache == "xdg"
+            else tmp_path / "home" / ".cache") / "otslam_tpu_torch"
+    assert roots["kernels"] == str(base / "otslam_tpu_torch")
+    assert roots["native"] == str(base / "otslam_tpu_torch_native")
+    assert (base / "otslam_tpu_torch").is_dir()
+    pkg = site / "otslam_tpu_torch"
+    assert roots["csrc"] == str(pkg / "csrc")
+    assert roots["src"] == str(pkg / "native")
+    assert roots["jax"] == []
+
+
+def test_unwritable_build_root_raises_naming_it(tmp_path):
+    from otslam_tpu_torch.build_dirs import build_root, make_build_dir
+    assert build_root() == ROOT / "build"          # this checkout
+    blocker = tmp_path / "file"
+    blocker.write_text("")
+    with pytest.raises(RuntimeError, match=re.escape(str(blocker / "b"))):
+        make_build_dir(blocker / "b")
+
+
+def test_examples_never_import_jax_or_the_jax_package():
+    """The example ports import only otslam_tpu_torch, and loading each
+    imports neither jax nor otslam_tpu."""
+    bad = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|otslam_tpu)\b", re.M)
+    ports = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [p.name for p in ports] == ["full_workflow_torch.py",
+                                       "production_mission_torch.py"]
+    for path in ports:
+        assert not bad.search(path.read_text()), path
+        proc = run_py(
+            "import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('ex', {str(path)!r})\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(m)\n"
+            "import inspect\n"
+            "print(inspect.signature(m.main).parameters['device'].default)\n"
+            "print(sorted(x for x in sys.modules if x.split('.')[0] in "
+            "('jax', 'otslam_tpu')))")
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.split() == ["cuda", "[]"]
 
 
 def test_precision_is_pinned():
