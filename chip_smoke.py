@@ -183,8 +183,8 @@ wrong:
    headline's largest calls; K5 on the mission's 64-tick perception batch
    with the most distinct poses, on its saved map.
 
-Each path (phases 4, 4b, 6, 8, 9, 10, 11, 12 and 13) is driven with the
-launch counters set to 0 just before it and read just after. Every kernel's
+Each path (phases 4, 4b, 6, 8, 9, 10, 11, 12 and 13) counts each kernel's
+launches from just before it to just after (`launch_counts`). Every kernel's
 record carries two times: `ms`, CUDA events around the wrapper call (its
 host work included), and `kernel_ms`, the kernel alone in a
 torch.profiler trace (K3/K4: the scan and, for a split launch, the
@@ -200,8 +200,8 @@ wrapper with the mip pass in it, its `kernel_ms` the classify kernel
 alone. The line before the last two is
 the kernels' JSON record, then the nvidia-smi name/power line; the last
 line is {"ok": true, "device": {...}}. JAX and otslam_tpu are never
-imported. profile_paths.py drives phases 4, 4b, 6, 8 and 9c under a
-profiler.
+imported. Where the main path's time goes is the benchmark's traced run
+(benchmark/README.md).
 """
 
 from __future__ import annotations
@@ -304,6 +304,23 @@ def check(ok: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# each kernel wrapper's C entry point, whose launches kernels/_build.check
+# counts as "launches.<entry point>" (utils/profiling.py)
+ENTRY_POINTS = {"depth_mips": "otslam_depth_mips",
+                "classify_blocks": "otslam_classify",
+                "pack_rgb": "otslam_pack_rgb", "fuse_blocks": "otslam_fuse",
+                "nn_min": "otslam_nn", "nn_min_windowed": "otslam_nn_window",
+                "ray_keys": "otslam_raycast"}
+
+
+def launch_counts(since: dict | None = None) -> dict:
+    """Each kernel wrapper's launches in this process, or since the counts
+    `since`."""
+    from otslam_tpu_torch.utils.profiling import COUNTS
+    now = {w: COUNTS["launches." + e] for w, e in ENTRY_POINTS.items()}
+    return now if since is None else {w: n - since[w] for w, n in now.items()}
 
 
 def cuda_ms(fn, reps: int, setup=None, warmup: int = 1) -> float:
@@ -769,8 +786,7 @@ def localizer_case(dev):
 @contextlib.contextmanager
 def k3_calls(keep):
     """While the block runs, every nn_min call goes ahead and keep(src,
-    dst, dst_mask) sees its operands first; the launches the calls make
-    are added to the wrapper's count afterwards."""
+    dst, dst_mask) sees its operands first."""
     from otslam_tpu_torch.kernels import nn
     real = nn.nn_min
 
@@ -778,15 +794,11 @@ def k3_calls(keep):
         keep(src, dst, dst_mask)
         return real(src, dst, dst_mask)
 
-    # the wrapper counts its launches on the module's nn_min, this one while
-    # it stands in
-    record.launches = 0
     nn.nn_min = record
     try:
         yield
     finally:
         nn.nn_min = real
-        real.launches += record.launches
 
 
 def k3_shape(label, src, dst, mask, dev):
@@ -961,6 +973,7 @@ def phase_reconstruct(batch, intr, cfg, dev, gt):
     res = reconstruct_frames(batch, intr, cfg, backend="pallas",
                              auto_origin=True, device=dev, seed=0,
                              timings=stages)
+    log(f"main path counts {stages.pop('trace')['counts']}")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "Object_0.ply")
         t1 = time.perf_counter()
@@ -1003,6 +1016,7 @@ def phase_mesh_path(batch, intr, cfg, dev, gt):
     res = reconstruct_frames(batch, intr, cfg, backend="pallas",
                              auto_origin=True, output="mesh", device=dev,
                              timings=stages)
+    log(f"mesh path counts {stages.pop('trace')['counts']}")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "Object_0.ply")
         t1 = time.perf_counter()
@@ -1173,6 +1187,7 @@ def phase_registration(batch, intr, cfg, dev, gt):
         res = reconstruct_frames(drifted, intr, cfg, backend="pallas",
                                  auto_origin=True, refine=refine,
                                  device=dev, seed=0, timings=stages)
+        log(f"refine={refine} counts {stages.pop('trace')['counts']}")
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "Object_0.ply")
             tio.write_ply(path, res.points, colors=res.colors,
@@ -2220,7 +2235,6 @@ def phase11_rank() -> dict:
     from otslam_tpu_torch.distributed import (
         extract_meshes_sharded, fuse_frames_sparse_data_parallel, make_mesh)
     from otslam_tpu_torch.distributed.dryrun import dryrun_multichip
-    from otslam_tpu_torch.kernels import nn, raycast
     from otslam_tpu_torch.kernels import tsdf_cuda as tc
     from otslam_tpu_torch.kernels.marching import (
         _validate_batch, extract_mesh_soup_block)
@@ -2237,15 +2251,11 @@ def phase11_rank() -> dict:
     other = tc.integrate_frames_cuda(make_block_volume(vol_cfg, dev),
                                      depths[:half], colors[:half],
                                      exts[:half], intr)
-    counters = (tc.depth_mips, tc.classify_blocks, tc.pack_rgb,
-                tc.fuse_blocks, nn.nn_min, nn.nn_min_windowed,
-                raycast.ray_keys)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dry = dryrun_multichip(mesh)
     torch.cuda.synchronize()
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     t1 = time.perf_counter()
     vol = fuse_frames_sparse_data_parallel(
         make_block_volume(vol_cfg, dev), depths, colors, exts, intr, mesh)
@@ -2254,7 +2264,7 @@ def phase11_rank() -> dict:
     verts, cols, masks = extract_meshes_sharded([vol, other], mesh)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = launch_counts(base)
     ref = tc.integrate_frames_cuda(make_block_volume(vol_cfg, dev), depths,
                                    colors, exts, intr)
     torch.cuda.synchronize()
@@ -2746,25 +2756,20 @@ def smoke() -> int:
 
     # --- 4. main path -----------------------------------------------------
     gt = scenario_gt("cardboard", GT_POINTS)
-    counters = (tc.depth_mips, tc.classify_blocks, tc.pack_rgb,
-                tc.fuse_blocks, nn.nn_min, nn.nn_min_windowed,
-                raycast.ray_keys)
     # the fusion schedule's four launches: every path fuses frames
     fusion = ("depth_mips", "classify_blocks", "pack_rgb", "fuse_blocks")
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     phase_reconstruct(batch, intr, cfg, dev, gt)
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = launch_counts(base)
     log(f"main path launches {launches}")
     check(all(launches[k] > 0 for k in fusion + ("nn_min",)),
           f"a kernel of the path never launched: {launches}")
 
     # --- 4b. mesh path ----------------------------------------------------
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     phase_mesh_path(batch, intr, cfg, dev, gt)
     torch.cuda.synchronize()
-    mesh_launches = {fn.__name__: fn.launches for fn in counters}
+    mesh_launches = launch_counts(base)
     log(f"mesh path launches {mesh_launches}")
     check(all(mesh_launches[k] > 0 for k in fusion + ("nn_min",)),
           f"a kernel of the mesh path never launched: {mesh_launches}")
@@ -2772,11 +2777,10 @@ def smoke() -> int:
     torch.cuda.synchronize()
 
     # --- 6. registration path ---------------------------------------------
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     phase_registration(batch, intr, cfg, dev, gt)
     torch.cuda.synchronize()
-    reg_launches = {fn.__name__: fn.launches for fn in counters}
+    reg_launches = launch_counts(base)
     log(f"registration path launches {reg_launches}")
     check(all(reg_launches[k] > 0
               for k in fusion + ("nn_min", "nn_min_windowed")),
@@ -2788,23 +2792,21 @@ def smoke() -> int:
     torch.cuda.synchronize()
 
     # --- 8. mission path ---------------------------------------------------
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         phase_mission(dev, os.path.join(tmp, "mission"))
     torch.cuda.synchronize()
-    mis_launches = {fn.__name__: fn.launches for fn in counters}
+    mis_launches = launch_counts(base)
     log(f"mission path launches {mis_launches}")
     check(all(mis_launches[k] > 0 for k in fusion + ("nn_min", "ray_keys")),
           f"a kernel of the mission path never launched: {mis_launches}")
 
     # --- 9. map-building and headline path ---------------------------------
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         phase9 = phase_map_building(dev, tmp)
     torch.cuda.synchronize()
-    hl_launches = {fn.__name__: fn.launches for fn in counters}
+    hl_launches = launch_counts(base)
     log(f"map-building and headline path launches {hl_launches}")
     check(all(hl_launches[k] > 0 for k in fusion + ("nn_min", "ray_keys")),
           f"a kernel of the map-building and headline path never launched: "
@@ -2813,13 +2815,12 @@ def smoke() -> int:
     del phase9
 
     # --- 10. online path ---------------------------------------------------
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     online_vol, cloud, pushed, k3_ops = phase_online(batch, intr, vol_cfg,
                                                      dev, gt)
     scenario, card_record = phase_system(dev)
     torch.cuda.synchronize()
-    on_launches = {fn.__name__: fn.launches for fn in counters}
+    on_launches = launch_counts(base)
     log(f"online path launches {on_launches}")
     check(all(on_launches[k] > 0 for k in fusion + ("nn_min", "ray_keys")),
           f"a kernel of the online path never launched: {on_launches}")
@@ -2829,11 +2830,10 @@ def smoke() -> int:
     del online_vol, scenario, card_record, k3_ops
 
     # --- 11. distributed path ----------------------------------------------
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     nccl_vol, chamfer = phase_nccl(batch, intr, vol_cfg, dev, cloud, gt)
     torch.cuda.synchronize()
-    dist_launches = {fn.__name__: fn.launches for fn in counters}
+    dist_launches = launch_counts(base)
     phase_nccl_checks(batch, intr, vol_cfg, dev, nccl_vol, chamfer, cloud,
                       gt)
     del nccl_vol
@@ -2847,11 +2847,10 @@ def smoke() -> int:
     rank_shapes(batch, intr, vol_cfg, dev, k2s, k1)
 
     # --- 12. bench path ---------------------------------------------------
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     phase_bench()
     torch.cuda.synchronize()
-    bench_launches = {fn.__name__: fn.launches for fn in counters}
+    bench_launches = launch_counts(base)
     log(f"bench path launches {bench_launches}")
     check(all(bench_launches[k] > 0
               for k in fusion + ("nn_min", "nn_min_windowed", "ray_keys")),
@@ -2859,12 +2858,11 @@ def smoke() -> int:
     bench_shapes(dev, k2s, k1, k3, k4, k5)
 
     # --- 13. production path ---------------------------------------------
-    for fn in counters:
-        fn.launches = 0
+    base = launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         production = phase_production(dev, tmp)
         torch.cuda.synchronize()
-        prod_launches = {fn.__name__: fn.launches for fn in counters}
+        prod_launches = launch_counts(base)
         log(f"production path launches {prod_launches}")
         check(all(prod_launches[k] > 0
                   for k in fusion + ("nn_min", "ray_keys")),

@@ -21,7 +21,8 @@ throughput and latency, not memory, and contraction would cut K3/K4's
 arithmetic from 8 to 6 instructions a pair.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-`check` raises on a non-zero code.
+`check` raises on a non-zero code and counts each launch that went through
+as ``launches.<entry point>`` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from pathlib import Path
 import torch
 
 from otslam_tpu_torch.build_dirs import build_root, make_build_dir
+from otslam_tpu_torch.utils.profiling import count
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = build_root() / "otslam_tpu_torch"
@@ -154,9 +156,11 @@ def load() -> ctypes.CDLL:
 
 
 def check(code: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise if the C entry point `name` reported a CUDA error; else count
+    its launch."""
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+    count("launches." + name)
 
 
 def check_operands(*tensors: torch.Tensor) -> None:

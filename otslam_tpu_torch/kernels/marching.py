@@ -12,6 +12,8 @@ block-major on the block path; on overflow the smallest cell ids (and, on
 the block path, the smallest created block ids) are kept, and padded cells
 decode cell 0 under a false mask. Vertex welding runs on the host (numpy
 unique on 1e-5 m quantized vertices), as in the JAX package.
+`extract_mesh` opens the spans ``extract.march``, ``extract.to_host`` and
+``extract.weld`` (utils/profiling.py).
 
 This is plain PyTorch on whatever device holds the volume: the JAX
 package's extraction is XLA with no Pallas kernel. Its TPU layout is not
@@ -33,9 +35,11 @@ from itertools import product
 import numpy as np
 import torch
 
+from otslam_tpu_torch.device import to_device, to_host
 from otslam_tpu_torch.kernels.tsdf import TSDFVolume, recip32
 from otslam_tpu_torch.kernels.tsdf_block import (
     BLOCK, BLOCK_VOXELS, BlockTSDFVolume)
+from otslam_tpu_torch.utils.profiling import span, waited
 
 # cube corner offsets (x, y, z), corner index x*4 + y*2 + z (z fastest)
 _CORNERS = np.array(list(product((0, 1), repeat=3)), np.int32)  # (8, 3)
@@ -109,6 +113,7 @@ def _compact_cells(active: torch.Tensor, max_ids: int):
     """(ids (max_ids,), mask (max_ids,)): the ascending indices of the set
     entries of a 1-D mask, the smallest max_ids of them on overflow, padded
     with 0 under a false mask."""
+    waited(active)
     ids = torch.nonzero(active).reshape(-1)[:max_ids]
     n = ids.shape[0]
     mask = torch.arange(max_ids, device=active.device) < n
@@ -119,9 +124,8 @@ def _corner_positions(base: torch.Tensor, voxel_size: float,
                       origin) -> torch.Tensor:
     """(C, 8, 3) world positions of the 8 corners of cells whose base voxel
     is `base` (C, 3) f32: (base + corner + 0.5) * voxel_size + origin."""
-    corners = torch.as_tensor(_CORNERS, dtype=torch.float32,
-                              device=base.device)
-    org = torch.as_tensor(origin, dtype=torch.float32, device=base.device)
+    corners = to_device(_CORNERS, base.device, torch.float32)
+    org = to_device(origin, base.device, torch.float32)
     return (base[:, None, :] + corners[None]
             + 0.5) * voxel_size + org[None, None, :]
 
@@ -135,16 +139,16 @@ def _soup_from_corners(tv: torch.Tensor, pos: torch.Tensor,
     (C*12, 9), tri_mask (C*12,))."""
     C = tv.shape[0]
     dev = tv.device
-    tets = torch.as_tensor(_TETS, dtype=torch.int64, device=dev)
+    tets = to_device(_TETS, dev, torch.int64)
     bits = (tv[:, tets] < 0).to(torch.int64)                    # (C, 6, 4)
     case = (bits[..., 0] + bits[..., 1] * 2 + bits[..., 2] * 4
             + bits[..., 3] * 8)                                 # (C, 6)
 
-    table = torch.as_tensor(_CORNER_TABLE, device=dev)          # (6,16,...)
+    table = to_device(_CORNER_TABLE, dev)                       # (6,16,...)
     sel = table[torch.arange(6, device=dev)[None, :], case]     # (C,6,2,3,2)
     ia = sel[..., 0].reshape(C, 36)
     ib = sel[..., 1].reshape(C, 36)
-    present = torch.as_tensor(_TRI_PRESENT, device=dev)[case]   # (C, 6, 2)
+    present = to_device(_TRI_PRESENT, dev)[case]                # (C, 6, 2)
 
     def at(field, idx):
         if field.dim() == 2:
@@ -171,14 +175,14 @@ def _soup_from_corners(tv: torch.Tensor, pos: torch.Tensor,
                           e1[..., 2] * e2[..., 0] - e1[..., 0] * e2[..., 2],
                           e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0]],
                          dim=-1)                                # (C, 12, 3)
-    gw = torch.as_tensor(_GRAD_W, device=dev)
+    gw = to_device(_GRAD_W, dev)
     gdir = tv[:, 0:1] * gw[0]
     for v in range(1, 8):
         gdir = gdir + tv[:, v:v + 1] * gw[v]                    # (C, 3)
     g = gdir[:, None, :]
     flip = (n_geom[..., 0] * g[..., 0] + n_geom[..., 1] * g[..., 1]
             + n_geom[..., 2] * g[..., 2]) < 0                   # (C, 12)
-    swap = torch.tensor([0, 2, 1], device=dev)
+    swap = to_device([0, 2, 1], dev)
     f4 = flip[..., None, None]
     v1 = torch.where(f4, vk[:, :, swap], vk)
     c1 = torch.where(f4, ck[:, :, swap], ck)
@@ -225,7 +229,7 @@ def extract_mesh_soup(vol: TSDFVolume, max_cells: int = 131072):
     ci = cells // (cy * cz)
     cj = (cells // cz) % cy
     ck = cells % cz
-    off = torch.as_tensor(_CORNERS, dtype=torch.int64, device=cells.device)
+    off = to_device(_CORNERS, cells.device, torch.int64)
     flat = ((off[None, :, 0] + ci[:, None]) * (Y * Z)
             + (off[None, :, 1] + cj[:, None]) * Z
             + (off[None, :, 2] + ck[:, None]))                  # (C, 8)
@@ -240,7 +244,9 @@ def extract_mesh_soup(vol: TSDFVolume, max_cells: int = 131072):
 
 def _count_active_cells(vol: TSDFVolume) -> int:
     """Number of surface cells: the exact extract_mesh_soup capacity."""
-    return int(_dense_active(vol).sum())
+    active = _dense_active(vol)
+    waited(active)
+    return int(active.sum())
 
 
 def _pow2_bucket(n: int, lo: int, cap: int) -> int:
@@ -268,6 +274,7 @@ def _created_ids(vol: BlockTSDFVolume, max_blocks: int) -> torch.Tensor:
     """The ascending created block ids, the smallest max_blocks of them
     (at least one entry: the dead row NB when none is created)."""
     nb = vol.num_blocks
+    waited(vol.created)
     ids = torch.nonzero(vol.created[:nb]).reshape(-1)[:max_blocks]
     if ids.shape[0] == 0:
         ids = torch.full((1,), nb, dtype=torch.int64, device=ids.device)
@@ -357,7 +364,9 @@ def extract_mesh_soup_block(vol: BlockTSDFVolume, max_blocks: int = 4096,
 
 
 def _count_active_cells_block(vol: BlockTSDFVolume, max_blocks: int) -> int:
-    return int(_block_active_cells(vol, max_blocks)[3].sum())
+    active = _block_active_cells(vol, max_blocks)[3]
+    waited(active)
+    return int(active.sum())
 
 
 def auto_mesh_block_config(vol: BlockTSDFVolume, blocks_cap: int = 32768,
@@ -366,6 +375,7 @@ def auto_mesh_block_config(vol: BlockTSDFVolume, blocks_cap: int = 32768,
     """(max_blocks, max_cells) sized to the volume: the exact created-block
     and surface-cell counts, bucketed to powers of two (the block-path
     analog of auto_max_cells)."""
+    waited(vol.created)
     nbk = max(int(vol.created[:vol.num_blocks].sum()), 1)
     mb = _pow2_bucket(nbk, 256, blocks_cap)
     if max_cells is None:
@@ -410,27 +420,40 @@ def extract_mesh(vol, max_cells: int | None = None):
     Accepts a dense TSDFVolume or a BlockTSDFVolume (extracted from its
     created blocks). max_cells None = auto (exact active-cell count,
     bucketed)."""
-    if isinstance(vol, BlockTSDFVolume):
-        mb, mc = auto_mesh_block_config(vol, max_cells=max_cells)
-        return _weld_mesh(*extract_mesh_soup_block(vol, mb, mc))
-    if max_cells is None:
-        max_cells = auto_max_cells(vol)
-    return _weld_mesh(*extract_mesh_soup(vol, max_cells))
+    with span("extract.march"):
+        if isinstance(vol, BlockTSDFVolume):
+            mb, mc = auto_mesh_block_config(vol, max_cells=max_cells)
+            soup = extract_mesh_soup_block(vol, mb, mc)
+        else:
+            if max_cells is None:
+                max_cells = auto_max_cells(vol)
+            soup = extract_mesh_soup(vol, max_cells)
+    return _weld_mesh(*soup)
 
 
 def _masked_rows(a, mask) -> np.ndarray:
     """The rows of `a` where `mask` holds, as a host array: a tensor is
     masked on its device, so only the kept rows cross to the host."""
     if isinstance(a, torch.Tensor):
-        return a[torch.as_tensor(mask, device=a.device)].cpu().numpy()
+        mask = to_device(mask, a.device)
+        waited(mask)            # the masked rows' count
+        return to_host(a[mask])
     return np.asarray(a)[np.asarray(mask)]
 
 
 def _weld_mesh(verts, cols, mask):
     """Host-side vertex welding of a masked (T, 9) triangle soup (1e-5 m
     quantization) into (vertices, faces, colors, normals)."""
-    v = _masked_rows(verts, mask).reshape(-1, 3)
-    c = _masked_rows(cols, mask).reshape(-1, 3)
+    with span("extract.to_host"):
+        v = _masked_rows(verts, mask).reshape(-1, 3)
+        c = _masked_rows(cols, mask).reshape(-1, 3)
+    with span("extract.weld"):
+        return _weld(v, c)
+
+
+def _weld(v: np.ndarray, c: np.ndarray):
+    """The welding itself, on host rows (3 a triangle) of vertices `v` and
+    colours `c`."""
     if len(v) == 0:
         return (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32),
                 np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32))

@@ -149,11 +149,7 @@ def nn_min(src: torch.Tensor, dst: torch.Tensor, dst_mask: torch.Tensor):
                          n, m, splits, best_d.data_ptr(), best_i.data_ptr(),
                          parts.data_ptr(), _build.stream_ptr(src.device))
     _build.check(code, "otslam_nn")
-    nn_min.launches += 1
     return best_d, best_i
-
-
-nn_min.launches = 0
 
 
 def nn_distance(src: torch.Tensor, dst: torch.Tensor,
@@ -315,11 +311,7 @@ def nn_min_windowed(src: torch.Tensor, dstp: torch.Tensor,
                                 parts.data_ptr(),
                                 _build.stream_ptr(src.device))
     _build.check(code, "otslam_nn_window")
-    nn_min_windowed.launches += 1
     return best_d, best_i
-
-
-nn_min_windowed.launches = 0
 
 
 def nn_distance_radius(src: torch.Tensor, dst: torch.Tensor, radius: float,

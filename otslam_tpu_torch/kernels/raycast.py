@@ -157,11 +157,7 @@ def ray_keys(grid: torch.Tensor, cos_a: torch.Tensor, sin_a: torch.Tensor,
                               first_stop.data_ptr(), first_occ.data_ptr(),
                               _build.stream_ptr(grid.device))
     _build.check(code, "otslam_raycast")
-    ray_keys.launches += 1
     return first_stop, first_occ
-
-
-ray_keys.launches = 0
 
 
 def _ranges_from_keys(first_stop, first_occ, num_steps: int,

@@ -20,6 +20,7 @@ import torch
 from otslam_tpu_torch.config import TSDFConfig
 from otslam_tpu_torch.core.camera import PinholeIntrinsics
 from otslam_tpu_torch.device import resolve_device
+from otslam_tpu_torch.utils.profiling import waited
 
 
 @dataclass
@@ -190,6 +191,7 @@ def merge_partials(sum_tw, sum_w, sum_cw, cfg: TSDFConfig) -> TSDFVolume:
 def _compact(mask: torch.Tensor, capacity: int) -> torch.Tensor:
     """Ascending flat indices of the set entries, at most `capacity` (the
     order of the JAX package's stable-argsort compaction)."""
+    waited(mask)
     return torch.nonzero(mask.reshape(-1)).reshape(-1)[:capacity]
 
 

@@ -34,6 +34,7 @@ from otslam_tpu_torch.core.camera import PinholeIntrinsics
 from otslam_tpu_torch.device import resolve_device
 from otslam_tpu_torch.kernels.tsdf import (
     TSDFVolume, _compact, _round_to_pixel, recip32)
+from otslam_tpu_torch.utils.profiling import waited
 
 BLOCK = 8               # voxels per block edge
 BLOCK_VOXELS = BLOCK ** 3
@@ -318,6 +319,7 @@ def _sample_frame(wx, wy, wz, depth, color_packed, extrinsic,
 def compact_ids(active: torch.Tensor) -> torch.Tensor:
     """Ascending int64 indices of the set entries of a 1-D mask: the exact
     active list (the JAX package pads to a static capacity instead)."""
+    waited(active)
     return torch.nonzero(active).reshape(-1)
 
 

@@ -19,8 +19,10 @@ Counterpart of otslam_tpu/kernels/tsdf_pallas.py. The schedule:
    `fuse_launch` gives its launch shape.
 
 Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
-for CUDA tensors it launches the kernel or raises. `launches` on each
-wrapper counts kernel launches.
+for CUDA tensors it launches the kernel or raises; `_build.check` counts each
+launch. `integrate_frames_cuda` opens the spans ``fuse.schedule`` (steps
+1-4), ``fuse.pack`` and ``fuse.k1`` (step 6 and the volume's created mask;
+utils/profiling.py).
 
 Not ported, because each exists only for Mosaic, VMEM, SMEM or the MXU: the
 bf16 hi/lo depth split, lane-shifted planes and the half-res colour
@@ -44,6 +46,7 @@ from otslam_tpu_torch.kernels.tsdf_block import (
     BLOCK, BLOCK_VOXELS, MIP_TILE, BlockTSDFVolume, _active_blocks,
     _depth_mips, _sample_frame, _voxel_world_coords, classify_constants)
 from otslam_tpu_torch.kernels.tsdf_block import pack_rgb as pack_rgb_torch
+from otslam_tpu_torch.utils.profiling import count, span, waited
 
 
 def _f32(x: float) -> float:
@@ -110,11 +113,7 @@ def depth_mips(depths: torch.Tensor):
         depths.data_ptr(), raw.data_ptr(), table.data_ptr(),
         gbounds.data_ptr(), n, H, W, th, tw, _build.stream_ptr(depths.device))
     _build.check(code, "otslam_depth_mips")
-    depth_mips.launches += 1
     return table, gbounds, th, tw
-
-
-depth_mips.launches = 0
 
 
 def pack_rgb(colors: torch.Tensor) -> torch.Tensor:
@@ -137,11 +136,7 @@ def pack_rgb(colors: torch.Tensor) -> torch.Tensor:
     code = lib.otslam_pack_rgb(colors.data_ptr(), out.data_ptr(), out.numel(),
                                _build.stream_ptr(colors.device))
     _build.check(code, "otslam_pack_rgb")
-    pack_rgb.launches += 1
     return out
-
-
-pack_rgb.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -184,11 +179,7 @@ def classify_blocks(meta, depths: torch.Tensor, extrinsics: torch.Tensor,
         _f32(intr.cx), _f32(intr.cy), _f32(trunc),
         _build.stream_ptr(depths.device))
     _build.check(code, "otslam_classify")
-    classify_blocks.launches += 1
     return band, vis
-
-
-classify_blocks.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +201,7 @@ def active_worklist(active: torch.Tensor):
     at those static sizes."""
     counts = active.sum(dim=0)                         # frames per block
     listed = counts > 0
+    waited(active)
     n_ids, nnz = torch.stack([listed.sum(), counts.sum()]).tolist()
     ids = torch.nonzero_static(listed, size=n_ids)[:, 0]
     frames = torch.nonzero_static(active.t(), size=nnz)[:, 1]  # block-major
@@ -266,7 +258,10 @@ def fuse_blocks_torch(vol: BlockTSDFVolume, ids, ptr, frames, depths,
 def fuse_blocks(vol: BlockTSDFVolume, ids, ptr, frames, depths, cpacked,
                 extrinsics, intr: PinholeIntrinsics) -> None:
     """Fuse the CSR work list into `vol` in place: kernel K1 on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, the plain version on CPU tensors. Counts the list's blocks
+    (``k1_blocks``) and (block, frame) pairs (``k1_pairs``)."""
+    count("k1_blocks", ids.shape[0])
+    count("k1_pairs", frames.shape[0])
     if vol.device.type == "cpu":
         fuse_blocks_torch(vol, ids, ptr, frames, depths, cpacked,
                           extrinsics, intr)
@@ -282,11 +277,12 @@ def fuse_blocks(vol: BlockTSDFVolume, ids, ptr, frames, depths, cpacked,
     n, H, W = depths.shape
     if ptr.shape[0] != ids.shape[0] + 1:
         raise ValueError("ptr must hold len(ids) + 1 offsets")
-    if ids.numel() and bool(  # one host sync: the kernel trusts the list
-            (ids.min() < 0) | (ids.max() >= vol.num_blocks)
-            | (frames.min() < 0) | (frames.max() >= n)
-            | (ptr[-1] != frames.shape[0])):
-        raise ValueError("work list out of range for this volume/batch")
+    if ids.numel():
+        waited(ids)         # one host sync: the kernel trusts the list
+        if bool((ids.min() < 0) | (ids.max() >= vol.num_blocks)
+                | (frames.min() < 0) | (frames.max() >= n)
+                | (ptr[-1] != frames.shape[0])):
+            raise ValueError("work list out of range for this volume/batch")
     if (H, W) != (intr.height, intr.width):
         raise ValueError(f"frames {H}x{W} != intrinsics "
                          f"{intr.height}x{intr.width}")
@@ -305,10 +301,6 @@ def fuse_blocks(vol: BlockTSDFVolume, ids, ptr, frames, depths, cpacked,
         _f32(intr.fx), _f32(intr.fy), _f32(intr.cx), _f32(intr.cy),
         _f32(trunc), recip32(trunc), _build.stream_ptr(vol.device))
     _build.check(code, "otslam_fuse")
-    fuse_blocks.launches += 1
-
-
-fuse_blocks.launches = 0
 
 
 def integrate_frames_cuda(vol: BlockTSDFVolume, depths, colors, extrinsics,
@@ -324,17 +316,20 @@ def integrate_frames_cuda(vol: BlockTSDFVolume, depths, colors, extrinsics,
     depths = depths.to(torch.float32)
     if depths.shape[0] == 0:
         return vol
-    band, visible = classify_blocks(vol.meta, depths, extrinsics, intr)
-    created, active = created_and_active(band, visible, vol.created[:nb])
-    if max_active is not None:
-        active &= torch.cumsum(active, dim=1) <= max_active
-    ids, ptr, frames = active_worklist(active)
-    fuse_blocks(vol, ids, ptr, frames, depths, pack_rgb(colors), extrinsics,
-                intr)
-    vol.created[:nb] = created[-1]
-    # the work list never names the dead row; keep its zero invariant even
-    # for a volume that arrived with it dirtied
-    vol.tsdf[nb] = 0.0
-    vol.weight[nb] = 0.0
-    vol.color[nb] = 0.0
+    with span("fuse.schedule"):
+        band, visible = classify_blocks(vol.meta, depths, extrinsics, intr)
+        created, active = created_and_active(band, visible, vol.created[:nb])
+        if max_active is not None:
+            active &= torch.cumsum(active, dim=1) <= max_active
+        ids, ptr, frames = active_worklist(active)
+    with span("fuse.pack"):
+        cpacked = pack_rgb(colors)
+    with span("fuse.k1"):
+        fuse_blocks(vol, ids, ptr, frames, depths, cpacked, extrinsics, intr)
+        vol.created[:nb] = created[-1]
+        # the work list never names the dead row; keep its zero invariant
+        # even for a volume that arrived with it dirtied
+        vol.tsdf[nb] = 0.0
+        vol.weight[nb] = 0.0
+        vol.color[nb] = 0.0
     return vol

@@ -15,13 +15,34 @@ the block-sparse path (kernels/tsdf_block.py), which launches the CUDA
 kernels for CUDA tensors; "dense" reaches kernels/tsdf.py. ``refine``
 corrects the capture poses before the main fusion (pipeline/refine.py):
 "icp", "f2m" or "pgo".
+
+With `timings=`, ``reconstruct_frames`` records the call's span tree and
+counter changes (utils/profiling.py) under ``timings["trace"]``:
+
+    recon.object
+    ├ recon.auto_volume
+    ├ recon.refine          (refine != "none")
+    ├ recon.fuse
+    │  ├ fuse.upload        the host frames to the card
+    │  ├ fuse.volume        the block volume's allocation and zero fill
+    │  ├ fuse.schedule      mips, K2, creation, the work list (one sync)
+    │  ├ fuse.pack          the colour pack
+    │  └ fuse.k1            the range check (one sync), K1, the created
+    │                         mask and the dead row
+    └ recon.extract
+       ├ extract.surface    cloud: the zero crossings and their compactions
+       ├ extract.sample     cloud: the count and the resampling
+       ├ extract.march      mesh: the marching soup and its compaction
+       ├ extract.to_host    the copies to the host
+       ├ extract.floor      cloud: the floor filter
+       └ extract.weld       mesh: the host weld
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-import time
 from dataclasses import dataclass
 from typing import Mapping, Sequence
 
@@ -31,7 +52,7 @@ import torch
 from otslam_tpu_torch.config import ReconstructionConfig
 from otslam_tpu_torch.core import io as tio
 from otslam_tpu_torch.core.camera import PinholeIntrinsics
-from otslam_tpu_torch.device import resolve_device, to_f32
+from otslam_tpu_torch.device import resolve_device, to_f32, to_host
 from otslam_tpu_torch.kernels.marching import extract_mesh
 from otslam_tpu_torch.kernels.sampling import resample_points
 from otslam_tpu_torch.kernels.tsdf import (
@@ -42,11 +63,14 @@ from otslam_tpu_torch.kernels.tsdf_block import (
 from otslam_tpu_torch.pipeline.dataset import CaptureDataset, FrameBatch
 from otslam_tpu_torch.pipeline.refine import (
     refine_trajectory, refine_trajectory_f2m, refine_trajectory_pgo)
+from otslam_tpu_torch.utils.profiling import (
+    COUNTS, count, recording, span, waited)
 
 BACKENDS = ("pallas", "sparse", "dense")
 OUTPUTS = ("cloud", "mesh")
 REFINERS = {"icp": refine_trajectory, "f2m": refine_trajectory_f2m,
             "pgo": refine_trajectory_pgo}
+STAGES = ("auto_volume", "refine", "fuse", "extract")
 
 
 def _observed_world_points(batch, intr: PinholeIntrinsics,
@@ -187,14 +211,16 @@ def fuse_frames(depths, colors, extrinsics, intr: PinholeIntrinsics,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
-    depths, colors, extrinsics = (to_f32(x, dev)
-                                  for x in (depths, colors, extrinsics))
+    with span("fuse.upload"):
+        depths, colors, extrinsics = (to_f32(x, dev)
+                                      for x in (depths, colors, extrinsics))
     if backend == "dense":
         dtype = torch.bfloat16 if cfg.tsdf.use_bfloat16 else torch.float32
         return integrate_frames(make_volume(cfg.tsdf, dev, dtype), depths,
                                 colors, extrinsics, intr)
-    vol = integrate_frames_sparse(make_block_volume(cfg.tsdf, dev), depths,
-                                  colors, extrinsics, intr,
+    with span("fuse.volume"):
+        vol = make_block_volume(cfg.tsdf, dev)
+    vol = integrate_frames_sparse(vol, depths, colors, extrinsics, intr,
                                   max_active=max_active)
     return block_to_dense(vol) if densify else vol
 
@@ -209,40 +235,40 @@ def extract_filtered_cloud(vol, cfg: ReconstructionConfig,
     (reconstruct_rgbd_filter.py:119-134). Accepts dense or block volumes;
     block volumes extract from created blocks only. The sample draws come
     from a torch.Generator seeded with `seed`, or from `draws`."""
-    if isinstance(vol, BlockTSDFVolume):
-        out = extract_surface_points_sparse(vol, capacity=capacity,
-                                            with_normals=with_normals)
-    else:
-        out = extract_surface_points(vol, capacity=capacity,
-                                     with_normals=with_normals)
+    with span("extract.surface"):
+        if isinstance(vol, BlockTSDFVolume):
+            out = extract_surface_points_sparse(vol, capacity=capacity,
+                                                with_normals=with_normals)
+        else:
+            out = extract_surface_points(vol, capacity=capacity,
+                                         with_normals=with_normals)
     pts, cols, mask = out[:3]
     normals = out[3] if with_normals else None
-    raw_count = int(mask.sum())
-    gen = torch.Generator(device=pts.device).manual_seed(seed)
-    s_pts, s_cols, s_nrm = resample_points(
-        pts, mask, cfg.surface_samples, colors=cols, normals=normals,
-        generator=gen, draws=draws)
-    p = s_pts.cpu().numpy()
-    c = s_cols.cpu().numpy()
-    nrm = None if s_nrm is None else s_nrm.cpu().numpy()
+    with span("extract.sample"):
+        waited(mask)
+        raw_count = int(mask.sum())
+        gen = torch.Generator(device=pts.device).manual_seed(seed)
+        s_pts, s_cols, s_nrm = resample_points(
+            pts, mask, cfg.surface_samples, colors=cols, normals=normals,
+            generator=gen, draws=draws)
+    with span("extract.to_host"):
+        p = to_host(s_pts)
+        c = to_host(s_cols)
+        nrm = None if s_nrm is None else to_host(s_nrm)
     if z_filter:
-        keep = p[:, 2] >= cfg.z_filter_threshold
-        p, c = p[keep], c[keep]
-        if nrm is not None:
-            nrm = nrm[keep]
+        with span("extract.floor"):
+            keep = p[:, 2] >= cfg.z_filter_threshold
+            p, c = p[keep], c[keep]
+            if nrm is not None:
+                nrm = nrm[keep]
     return ReconstructionResult(p, c, nrm, 0, raw_count)
 
 
-def _stage(timings: dict | None, name: str, t0: float, dev) -> float:
-    """Record the seconds since t0 under `name` (after the device drains)
-    when `timings` is given; returns the new start time."""
-    if timings is None:
-        return t0
-    if dev.type == "cuda":
+def _drain(timings: dict | None, dev) -> None:
+    """With `timings` given, wait for the device work queued so far, so
+    that a stage's time holds it."""
+    if timings is not None and dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    now = time.perf_counter()
-    timings[name] = now - t0
-    return now
 
 
 def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
@@ -269,39 +295,60 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
     solve; only the refined extrinsics feed the main fusion.
     `timings`, when given, receives the seconds of each stage
     ("auto_volume", "refine", "fuse", "extract"; a mesh's "extract" holds
-    the extraction and the weld), each ending in a device sync."""
+    the extraction and the weld), each ending in a device sync, and under
+    "trace" the call's record: {"object": its number in the process,
+    "frames": the frame count, "spans": [[name, parent, t0_ns, t1_ns],
+    ...] (the module docstring's tree), "counts": the change of each
+    process counter}."""
     if output not in OUTPUTS:
         raise ValueError(f"unknown output {output!r}")
     if refine != "none" and refine not in REFINERS:
         raise ValueError(f"unknown refine {refine!r}")
     cfg = cfg or ReconstructionConfig()
     dev = resolve_device(device)
-    t0 = time.perf_counter()
-    if auto_origin:
-        if auto_dims is None or auto_dims:
-            cfg = auto_volume_config(batch, intr, cfg)
-        else:
-            cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
-                cfg.tsdf, origin=auto_volume_origin(batch, intr, cfg)))
-    t0 = _stage(timings, "auto_volume", t0, dev)
-    if refine != "none":
-        refined = REFINERS[refine](batch.depths, batch.colors,
-                                   batch.extrinsics, intr, cfg, device=dev)
-        batch = dataclasses.replace(batch, extrinsics=refined.extrinsics)
-        t0 = _stage(timings, "refine", t0, dev)
-    vol = fuse_frames(batch.depths, batch.colors, batch.extrinsics, intr,
-                      cfg, backend, densify=False, device=dev)
-    t0 = _stage(timings, "fuse", t0, dev)
-    if output == "mesh":
-        verts, faces, cols, normals = extract_mesh(vol)
-        res = ReconstructionResult(verts, cols, normals, 0, len(verts),
-                                   faces=faces)
-    else:
-        res = extract_filtered_cloud(vol, cfg, seed=seed, z_filter=z_filter,
-                                     draws=draws)
-    _stage(timings, "extract", t0, dev)
-    res.num_frames = len(batch.names)
-    res.extrinsics = np.asarray(batch.extrinsics)
+    count("recon.objects")
+    obj = COUNTS["recon.objects"]
+    rec = recording() if timings is not None else contextlib.nullcontext()
+    with rec as r, span("recon.object"):
+        with span("recon.auto_volume"):
+            if auto_origin:
+                if auto_dims is None or auto_dims:
+                    cfg = auto_volume_config(batch, intr, cfg)
+                else:
+                    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+                        cfg.tsdf, origin=auto_volume_origin(batch, intr,
+                                                            cfg)))
+            _drain(timings, dev)
+        if refine != "none":
+            with span("recon.refine"):
+                refined = REFINERS[refine](batch.depths, batch.colors,
+                                           batch.extrinsics, intr, cfg,
+                                           device=dev)
+                batch = dataclasses.replace(batch,
+                                            extrinsics=refined.extrinsics)
+                _drain(timings, dev)
+        with span("recon.fuse"):
+            vol = fuse_frames(batch.depths, batch.colors, batch.extrinsics,
+                              intr, cfg, backend, densify=False, device=dev)
+            _drain(timings, dev)
+        with span("recon.extract"):
+            if output == "mesh":
+                verts, faces, cols, normals = extract_mesh(vol)
+                res = ReconstructionResult(verts, cols, normals, 0,
+                                           len(verts), faces=faces)
+            else:
+                res = extract_filtered_cloud(vol, cfg, seed=seed,
+                                             z_filter=z_filter, draws=draws)
+            _drain(timings, dev)
+        res.num_frames = len(batch.names)
+        res.extrinsics = np.asarray(batch.extrinsics)
+    if timings is not None:
+        for stage in STAGES:
+            sec = r.seconds("recon." + stage)
+            if sec is not None:
+                timings[stage] = sec
+        timings["trace"] = {"object": obj, "frames": res.num_frames,
+                            "spans": r.spans, "counts": r.counts()}
     return res
 
 

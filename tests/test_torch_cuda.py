@@ -22,6 +22,7 @@ from otslam_tpu_torch.kernels import nn, raycast, tsdf_cuda as tc
 from otslam_tpu_torch.kernels import tsdf_block as ttb
 from otslam_tpu_torch.sim.sensors import look_at_pose, render_rgbd
 from otslam_tpu_torch.sim.world import cardboard_room
+from otslam_tpu_torch.utils.profiling import COUNTS
 from torch_cases import MIP_CASES, MIP_SIZES, colours, mip_depth
 
 pytestmark = pytest.mark.cuda
@@ -61,13 +62,12 @@ def test_classify_kernel_matches_plain(dev, frames):
     depths, _, exts = (x.to(dev) for x in frames)
     meta = ttb.make_block_volume(VOL, dev).meta
     for f in (slice(None), slice(5, 6)):
-        before = (tc.depth_mips.launches, tc.classify_blocks.launches)
+        keys = ("launches.otslam_depth_mips", "launches.otslam_classify")
+        before = [COUNTS[k] for k in keys]
         band_k, vis_k = tc.classify_blocks(meta, depths[f], exts[f], INTR)
         band_p, vis_p = tc.classify_blocks_torch(meta, depths[f], exts[f],
                                                  INTR)
-        assert (tc.depth_mips.launches,
-                tc.classify_blocks.launches) == (before[0] + 1,
-                                                 before[1] + 1)
+        assert [COUNTS[k] for k in keys] == [before[0] + 1, before[1] + 1]
         assert band_k.dtype == vis_k.dtype == torch.bool
         assert band_p.any() and torch.equal(band_k, band_p)
         assert torch.equal(vis_k, vis_p)
@@ -86,9 +86,9 @@ def test_mip_kernel_matches_plain(dev, case, n):
     unaligned.copy_(d)
     want = tc.depth_mips_torch(d)
     for depths in (d, unaligned):
-        before = tc.depth_mips.launches
+        before = COUNTS["launches.otslam_depth_mips"]
         table, gbounds, th, tw = tc.depth_mips(depths)
-        assert tc.depth_mips.launches == before + 1
+        assert COUNTS["launches.otslam_depth_mips"] == before + 1
         assert (th, tw) == want[2:]
         assert torch.equal(table, want[0]) and torch.equal(gbounds, want[1])
 
@@ -102,9 +102,9 @@ def test_pack_kernel_matches_plain(dev, case, n):
     h, w = MIP_SIZES[case]
     c = torch.as_tensor(colours(n, h, w, seed=n), device=dev)
     for cols in (c, c.reshape(-1, 3)[1:]):
-        before = tc.pack_rgb.launches
+        before = COUNTS["launches.otslam_pack_rgb"]
         got = tc.pack_rgb(cols)
-        assert tc.pack_rgb.launches == before + 1
+        assert COUNTS["launches.otslam_pack_rgb"] == before + 1
         assert got.dtype == torch.int32
         assert torch.equal(got, ttb.pack_rgb(cols))
 
@@ -120,12 +120,13 @@ def test_pack_kernel_packs_nan_as_zero(dev):
 def test_integration_launches_each_kernel_once(dev, frames):
     """One integrate_frames_cuda call on the card runs the mip pass, K2,
     the colour pack and K1 once each, and no plain pass."""
-    counters = (tc.depth_mips, tc.classify_blocks, tc.pack_rgb,
-                tc.fuse_blocks)
-    before = [fn.launches for fn in counters]
+    counters = ["launches." + name for name in (
+        "otslam_depth_mips", "otslam_classify", "otslam_pack_rgb",
+        "otslam_fuse")]
+    before = [COUNTS[k] for k in counters]
     vol = tc.integrate_frames_cuda(ttb.make_block_volume(VOL, dev),
                                    *(x.to(dev) for x in frames), INTR)
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [1] * 4
+    assert [COUNTS[k] - b for k, b in zip(counters, before)] == [1] * 4
     assert vol.weight.sum() > 0
 
 
@@ -138,10 +139,10 @@ def fuse_both(base, ids, ptr, frames_, depths, colors, exts):
     """(kernel, plain) volumes: the work list fused into copies of `base`
     by K1 and by its plain version."""
     kv, pv = copy.deepcopy(base), copy.deepcopy(base)
-    before = tc.fuse_blocks.launches
+    before = COUNTS["launches.otslam_fuse"]
     cpk = ttb.pack_rgb(colors)
     tc.fuse_blocks(kv, ids, ptr, frames_, depths, cpk, exts, INTR)
-    assert tc.fuse_blocks.launches == before + 1
+    assert COUNTS["launches.otslam_fuse"] == before + 1
     tc.fuse_blocks_torch(pv, ids, ptr, frames_, depths, cpk, exts, INTR)
     return kv, pv
 
@@ -224,10 +225,10 @@ def test_nn_kernel_matches_plain(dev):
     mask = rng.random(5000) > 0.05
     src, dst, mask = (torch.as_tensor(a, device=dev)
                       for a in (src, dst, mask))
-    before = nn.nn_min.launches
+    before = COUNTS["launches.otslam_nn"]
     dk, ik = nn.nn_min(src, dst, mask)
     dp, ip = nn.nn_min_torch(src, dst, mask)
-    assert nn.nn_min.launches == before + 1
+    assert COUNTS["launches.otslam_nn"] == before + 1
     assert torch.equal(dk, dp) and torch.equal(ik, ip)
     d_all, i_all = nn.nn_min(src, dst, torch.zeros_like(mask))
     assert torch.all(d_all == nn.BIG) and torch.all(i_all == 0)
@@ -263,10 +264,10 @@ def test_windowed_nn_kernel_matches_plain(dev, case):
         assert torch.all(spans == dstp.shape[0] // nn.DST_CHUNK)
     else:
         assert int(spans.max()) < dstp.shape[0] // nn.DST_CHUNK
-    before = nn.nn_min_windowed.launches
+    before = COUNTS["launches.otslam_nn_window"]
     dk, ik = nn.nn_min_windowed(src, dstp, dmaskp, c0, c1)
     dp, ip = nn.nn_min_windowed_torch(src, dstp, dmaskp, c0, c1)
-    assert nn.nn_min_windowed.launches == before + 1
+    assert COUNTS["launches.otslam_nn_window"] == before + 1
     assert torch.equal(dk, dp) and torch.equal(ik, ip)
     if case == "masked":
         assert torch.all(dk == nn.BIG) and torch.all(ik == 0)
@@ -402,9 +403,9 @@ def test_raycast_kernel_matches_plain(dev, beams, poses):
     args = (0.05, -0.7, -0.4, 160)
     ps, po = raycast.ray_keys_torch(grid_t, cos_a, sin_a, xy, *args)
     for variant in RAY_VARIANTS:
-        before = raycast.ray_keys.launches
+        before = COUNTS["launches.otslam_raycast"]
         fs, fo = raycast.ray_keys(grid_t, cos_a, sin_a, xy, *args, **variant)
-        assert raycast.ray_keys.launches == before + 1
+        assert COUNTS["launches.otslam_raycast"] == before + 1
         assert torch.equal(fs, ps) and torch.equal(fo, po), variant
     assert bool((fs < 160).any()) and bool((fo < 160).any())
     ranges = raycast.raycast_grid_fast(grid_t, 0.05, -0.7, -0.4,

@@ -35,20 +35,17 @@ CFG = {"camera": CAM, "reconstruction": {
                             "dims": [64, 64, 64]}}}
 
 # runs each argv through the port's main(), then reports the modules and
-# launch counters
+# the launches of each kernel entry point
 PORT = """
 import json, sys
 from otslam_tpu_torch import cli
 for argv in json.loads(sys.argv[1]):
     cli.main(argv)
-from otslam_tpu_torch.kernels import nn, raycast, tsdf_cuda
+from otslam_tpu_torch.kernels._build import SIGNATURES
+from otslam_tpu_torch.utils.profiling import COUNTS
 print("REPORT " + json.dumps({
     "jax": "jax" in sys.modules, "otslam_tpu": "otslam_tpu" in sys.modules,
-    "launches": [tsdf_cuda.depth_mips.launches,
-                 tsdf_cuda.classify_blocks.launches,
-                 tsdf_cuda.pack_rgb.launches, tsdf_cuda.fuse_blocks.launches,
-                 nn.nn_min.launches, nn.nn_min_windowed.launches,
-                 raycast.ray_keys.launches]}))
+    "launches": [COUNTS["launches." + name] for name in SIGNATURES]}))
 """
 
 

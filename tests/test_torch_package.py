@@ -35,23 +35,20 @@ def run_py(code: str, *args: str, cwd=None) -> subprocess.CompletedProcess:
                           timeout=240)
 
 
-# runs the CLI in-process, then reports the modules and launch counters
+# runs the CLI in-process, then reports the modules and the launches of
+# each kernel entry point
 CLI = """
 import json, runpy, sys
 sys.argv = ["otslam_tpu_torch.cli"] + sys.argv[1:]
 try:
     runpy.run_module("otslam_tpu_torch.cli", run_name="__main__")
 finally:
-    from otslam_tpu_torch.kernels import nn, raycast, tsdf_cuda
+    from otslam_tpu_torch.kernels._build import SIGNATURES
+    from otslam_tpu_torch.utils.profiling import COUNTS
     print("REPORT " + json.dumps({
         "jax": "jax" in sys.modules,
         "otslam_tpu": "otslam_tpu" in sys.modules,
-        "launches": [tsdf_cuda.depth_mips.launches,
-                     tsdf_cuda.classify_blocks.launches,
-                     tsdf_cuda.pack_rgb.launches,
-                     tsdf_cuda.fuse_blocks.launches, nn.nn_min.launches,
-                     nn.nn_min_windowed.launches,
-                     raycast.ray_keys.launches]}))
+        "launches": [COUNTS["launches." + name] for name in SIGNATURES]}))
 """
 
 

@@ -47,6 +47,7 @@ from otslam_tpu_torch.mapping.perception import (compact_ids,
 from otslam_tpu_torch.mapping.virtual_scan import VirtualScanner
 from otslam_tpu_torch.sim.sensors import render_lidar, render_lidar_path
 from otslam_tpu_torch.sim.world import Scene, cardboard_room
+from otslam_tpu_torch.utils.profiling import COUNTS
 
 import torch_parity  # noqa: F401  (one torch thread per test process)
 
@@ -155,7 +156,7 @@ def test_raycast_batch_equals_single_poses(room_map):
                                      angles, RANGE_MAX)
         assert torch.equal(batch[k], one)
     # a CPU grid never reaches the kernel
-    assert tray.ray_keys.launches == 0
+    assert COUNTS["launches.otslam_raycast"] == 0
 
 
 def test_raycast_c_cast_boundary():

@@ -119,7 +119,8 @@ def test_reconstruct_frames_refine_options(drifted):
     timings = {}
     res = reconstruct_frames(batch, T_INTR, TCFG, refine="icp",
                              timings=timings, device="cpu")
-    assert list(timings) == ["auto_volume", "refine", "fuse", "extract"]
+    assert list(timings) == ["auto_volume", "refine", "fuse", "extract",
+                             "trace"]
     assert len(res.points) > 1000 and res.extrinsics.shape == (8, 4, 4)
     assert (tr.trajectory_error(res.extrinsics, gt)[0]
             < tr.trajectory_error(noisy, gt)[0])

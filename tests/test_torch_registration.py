@@ -36,6 +36,7 @@ from otslam_tpu_torch.kernels import tsdf_block as ttb
 from otslam_tpu_torch.mapping.localize import ScanLocalizer
 from otslam_tpu_torch.sim.sensors import render_lidar
 from otslam_tpu_torch.sim.world import cardboard_room
+from otslam_tpu_torch.utils.profiling import COUNTS
 from torch_parity import (J_SMALL, capture, lattice_box, small_motion)
 
 
@@ -106,11 +107,11 @@ def test_nn_distance_radius_matches_jax(sparse_clouds, masked):
                                         with_index=True, interpret=True)
     jf_d, jf_i = jnn.nn_distance(j(src), j(dst), j(smask), j(dmask),
                                  with_index=True)
-    before = tnn.nn_min_windowed.launches
+    before = COUNTS["launches.otslam_nn_window"]
     td, ti = tnn.nn_distance_radius(t(src), t(dst), RADIUS, t(smask),
                                     t(dmask), window_chunks=W, axis=axis,
                                     with_index=True)
-    assert tnn.nn_min_windowed.launches == before     # CPU: plain version
+    assert COUNTS["launches.otslam_nn_window"] == before  # CPU: plain one
     td, ti = td.numpy(), ti.numpy()
     best, gap = nn_gap(src, dst, dmask)
     inl = smask & (best < RADIUS)

@@ -16,6 +16,7 @@ from otslam_tpu.kernels.tsdf_pallas import _cumulative_or
 from otslam_tpu_torch.config import TSDFConfig
 from otslam_tpu_torch.kernels import tsdf_block as ttb
 from otslam_tpu_torch.kernels import tsdf_cuda as tc
+from otslam_tpu_torch.utils.profiling import COUNTS
 from torch_cases import MIP_CASES, colours, mip_depth
 from torch_parity import T_SMALL, capture
 
@@ -65,11 +66,12 @@ def test_dead_row_restored_and_cpu_never_launches():
     depths, colors, exts = (torch.from_numpy(a) for a in capture(3))
     vol = ttb.make_block_volume(VOL, device="cpu")
     vol.tsdf[-1] = 5.0                     # a dirtied dead row
-    counters = (tc.depth_mips, tc.classify_blocks, tc.pack_rgb,
-                tc.fuse_blocks)
-    launches = [fn.launches for fn in counters]
+    counters = ["launches." + name for name in (
+        "otslam_depth_mips", "otslam_classify", "otslam_pack_rgb",
+        "otslam_fuse")]
+    launches = [COUNTS[k] for k in counters]
     ttb.integrate_frames_sparse(vol, depths, colors, exts, T_SMALL)
-    assert [fn.launches for fn in counters] == launches
+    assert [COUNTS[k] for k in counters] == launches
     assert vol.weight.sum() > 0
     assert float(vol.tsdf[-1].abs().sum()) == 0.0
 
@@ -100,9 +102,9 @@ def test_depth_mips_on_the_cpu_is_the_plain_version(case):
     tsdf_block._depth_mips and its column-4 min / column-5 max) and
     launches nothing."""
     depths = torch.from_numpy(mip_depth(case, 3, seed=4))
-    launches = tc.depth_mips.launches
+    launches = COUNTS["launches.otslam_depth_mips"]
     table, gbounds, th, tw = tc.depth_mips(depths)
-    assert tc.depth_mips.launches == launches
+    assert COUNTS["launches.otslam_depth_mips"] == launches
     plain, pth, ptw = ttb._depth_mips(depths)
     assert (th, tw) == (pth, ptw) == tuple(-(-s // ttb.MIP_TILE)
                                            for s in depths.shape[1:])
@@ -116,9 +118,9 @@ def test_pack_rgb_on_the_cpu_is_the_plain_version():
     """On CPU tensors tsdf_cuda.pack_rgb is tsdf_block.pack_rgb (floats
     out of range and +-inf included) and launches nothing."""
     c = torch.from_numpy(colours(2, 37, 53, seed=3))
-    launches = tc.pack_rgb.launches
+    launches = COUNTS["launches.otslam_pack_rgb"]
     got = tc.pack_rgb(c)
-    assert tc.pack_rgb.launches == launches
+    assert COUNTS["launches.otslam_pack_rgb"] == launches
     assert got.dtype == torch.int32 and torch.equal(got, ttb.pack_rgb(c))
     assert int(got.max()) <= 0xFFFFFF and int(got.min()) >= 0
 
@@ -143,10 +145,10 @@ def test_fuse_blocks_on_the_cpu_is_the_plain_version(small_capture):
     _, active = tc.created_and_active(band, vis, a.created[:-1])
     ids, ptr, frames = tc.active_worklist(active)
     cpk = ttb.pack_rgb(colors)
-    launches = tc.fuse_blocks.launches
+    launches = COUNTS["launches.otslam_fuse"]
     tc.fuse_blocks(a, ids, ptr, frames, depths, cpk, exts, T_SMALL)
     tc.fuse_blocks_torch(b, ids, ptr, frames, depths, cpk, exts, T_SMALL)
-    assert tc.fuse_blocks.launches == launches and b.weight.sum() > 0
+    assert COUNTS["launches.otslam_fuse"] == launches and b.weight.sum() > 0
     for k in ("tsdf", "weight", "color"):
         assert torch.equal(getattr(a, k), getattr(b, k))
 
