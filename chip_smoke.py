@@ -42,8 +42,10 @@ wrong:
    equal, vertices and colours within 1e-6); the dense path on the
    densified 256^3 volume gives the block path's triangles as a set; and
    extract_meshes_block on two volumes with different origins equals the
-   single path for each. Prints the triangles, welded vertices and the
-   seconds of extraction (block path, dense 256^3 path) and of the weld;
+   single path for each; the weld on the card gives numpy's keys,
+   vertices, faces and colours (normals within 1e-5). Prints the
+   triangles, welded vertices and the seconds of extraction (block path,
+   dense 256^3 path) and of the weld, on the card and by numpy;
 5. K4 windowed nearest neighbour against its plain version (bit-identical
    d^2 and index on every row) and against K3 (identical on every row whose
    nearest neighbour lies within the radius, >= the radius elsewhere) at
@@ -1067,7 +1069,8 @@ def phase_mesh_checks(batch, intr, cfg, vol_cfg, dev, card):
     """Phase 4b's checks on the fused block volume of the capture: the
     block soup on the card against the CPU, the dense 256^3 path against
     the block path as a triangle set, the batched path against the single
-    one; then the extraction and weld times."""
+    one, the card's weld against numpy's; then the extraction and weld
+    times."""
     import numpy as np
     import torch
 
@@ -1133,14 +1136,30 @@ def phase_mesh_checks(batch, intr, cfg, vol_cfg, dev, card):
         vol, *mt.auto_mesh_block_config(vol)))
     dense_s = seconds(lambda: mt.extract_mesh_soup(dense,
                                                    mt.auto_max_cells(dense)))
+    # the card's weld against numpy's of the same rows
+    rows = soup[0][soup[2]].reshape(-1, 3)
+    v, c = rows.cpu().numpy(), soup[1][soup[2]].reshape(-1, 3).cpu().numpy()
+    check(np.array_equal(mt._weld_keys(rows).cpu().numpy(),
+                         np.round(v / 1e-5).astype(np.int64)),
+          "the card's weld keys differ from numpy's")
     t0 = time.perf_counter()
-    welded = mt._weld_mesh(*soup)
-    weld_s = time.perf_counter() - t0
+    want = mt._weld(v, c)
+    numpy_s = time.perf_counter() - t0
+    extent = mt._extent(vol)
+    welded = mt._weld_mesh(*soup, extent=extent)
+    for k, name in enumerate(("vertices", "faces", "colours")):
+        check(welded[k].shape == want[k].shape
+              and np.array_equal(welded[k], want[k]),
+              f"the card's welded {name} differ from numpy's")
+    nerr = float(np.abs(welded[3] - want[3]).max(initial=0.0))
+    check(nerr <= 1e-5, f"the card's weld normals differ by {nerr}")
+    weld_s = seconds(lambda: mt._weld_mesh(*soup, extent=extent))
     log(f"mesh times ({card}): extraction, block path with its auto "
         f"config {block_s:.4f} s; dense {tuple(dense.dims)} path with its "
-        f"auto capacity {dense_s:.4f} s; weld {weld_s:.4f} s; {n_tri} "
-        f"triangles, {len(welded[0])} welded vertices, {len(welded[1])} "
-        "faces")
+        f"auto capacity {dense_s:.4f} s; weld on the card {weld_s:.4f} s, "
+        f"numpy's {numpy_s:.4f} s (equal vertices, faces and colours, "
+        f"normals within {nerr:.3g}); {n_tri} triangles, "
+        f"{len(welded[0])} welded vertices, {len(welded[1])} faces")
 
 
 def drift(exts, seed: int = 0, t_sigma: float = 0.012,

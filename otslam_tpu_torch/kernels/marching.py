@@ -10,10 +10,12 @@ T = max_cells * 12, triangle `cell*12 + tet*2 + tri`, rows vertex-major
 ([v0x v0y v0z v1x ... v2z]). Cells are x-major on the dense path and
 block-major on the block path; on overflow the smallest cell ids (and, on
 the block path, the smallest created block ids) are kept, and padded cells
-decode cell 0 under a false mask. Vertex welding runs on the host (numpy
-unique on 1e-5 m quantized vertices), as in the JAX package.
-`extract_mesh` opens the spans ``extract.march``, ``extract.to_host`` and
-``extract.weld`` (utils/profiling.py).
+decode cell 0 under a false mask. Vertex welding (1e-5 m quantized
+vertices) runs where the soup lives: a card's soup is welded on the card
+by one stable sort of packed keys, in numpy's order, and only the welded
+arrays cross to the host; a host soup by numpy unique, as in the JAX
+package. `extract_mesh` opens the spans ``extract.march``,
+``extract.to_host`` and ``extract.weld`` (utils/profiling.py).
 
 This is plain PyTorch on whatever device holds the volume: the JAX
 package's extraction is XLA with no Pallas kernel. Its TPU layout is not
@@ -39,7 +41,7 @@ from otslam_tpu_torch.device import to_device, to_host
 from otslam_tpu_torch.kernels.tsdf import TSDFVolume, recip32
 from otslam_tpu_torch.kernels.tsdf_block import (
     BLOCK, BLOCK_VOXELS, BlockTSDFVolume)
-from otslam_tpu_torch.utils.profiling import span, waited
+from otslam_tpu_torch.utils.profiling import count, drain, span, waited
 
 # cube corner offsets (x, y, z), corner index x*4 + y*2 + z (z fastest)
 _CORNERS = np.array(list(product((0, 1), repeat=3)), np.int32)  # (8, 3)
@@ -414,8 +416,8 @@ def extract_meshes_block(vols, max_blocks: int | None = None,
 
 
 def extract_mesh(vol, max_cells: int | None = None):
-    """Host-side welded mesh: (vertices (V,3), faces (F,3), colors (V,3),
-    normals (V,3)) numpy. Vertices quantized to 1e-5 m for welding.
+    """Welded mesh: (vertices (V,3), faces (F,3), colors (V,3), normals
+    (V,3)) numpy. Vertices quantized to 1e-5 m for welding.
 
     Accepts a dense TSDFVolume or a BlockTSDFVolume (extracted from its
     created blocks). max_cells None = auto (exact active-cell count,
@@ -428,7 +430,16 @@ def extract_mesh(vol, max_cells: int | None = None):
             if max_cells is None:
                 max_cells = auto_max_cells(vol)
             soup = extract_mesh_soup(vol, max_cells)
-    return _weld_mesh(*soup)
+    return _weld_mesh(*soup, extent=_extent(vol))
+
+
+def _extent(vol) -> float:
+    """The widest side of `vol`'s box in metres; its vertices lie inside."""
+    if isinstance(vol, BlockTSDFVolume):
+        n = max(vol.grid_blocks) * BLOCK
+    else:
+        n = max(vol.dims)
+    return n * vol.voxel_size
 
 
 def _masked_rows(a, mask) -> np.ndarray:
@@ -441,14 +452,121 @@ def _masked_rows(a, mask) -> np.ndarray:
     return np.asarray(a)[np.asarray(mask)]
 
 
-def _weld_mesh(verts, cols, mask):
-    """Host-side vertex welding of a masked (T, 9) triangle soup (1e-5 m
-    quantization) into (vertices, faces, colors, normals)."""
+# the weld's quantum in metres, and the widest box whose keys fit 21 bits an
+# axis: (2^21 - 1) * 1e-5 = 20.97 m, less room for the vertices' rounding
+_QUANTUM = 1e-5
+_PACK_EXTENT = 20.0
+
+
+def _weld_mesh(verts, cols, mask, extent: float | None = None):
+    """Vertex welding of a masked (T, 9) triangle soup (1e-5 m
+    quantization) into host (vertices, faces, colors, normals). A soup on
+    the card is welded there (`_weld_device`; `extent`, the widest side in
+    metres of a box holding the vertices, lets it sort one packed key); a
+    host soup, arrays or CPU tensors, by numpy's `_weld`."""
+    if isinstance(verts, torch.Tensor) and verts.is_cuda:
+        with span("extract.to_host"):
+            rows = torch.nonzero(to_device(mask, verts.device)).reshape(-1)
+            waited(rows)        # the masked rows' count
+            v = verts[rows].reshape(-1, 3)
+            c = cols[rows].reshape(-1, 3)
+        return _weld_device(v, c, extent)
     with span("extract.to_host"):
         v = _masked_rows(verts, mask).reshape(-1, 3)
         c = _masked_rows(cols, mask).reshape(-1, 3)
     with span("extract.weld"):
         return _weld(v, c)
+
+
+def _weld_keys(v: torch.Tensor) -> torch.Tensor:
+    """numpy's weld keys of `v`, ``np.round(v / 1e-5)`` as int64, bit for
+    bit: float32 true division by a divisor on `v`'s device (CUDA
+    multiplies by the reciprocal of a host scalar, which moves keys at .5
+    ties), then round-half-to-even."""
+    q = torch.full((), _QUANTUM, dtype=torch.float32, device=v.device)
+    return torch.round(v / q).to(torch.int64)
+
+
+def _weld_device(v: torch.Tensor, c: torch.Tensor,
+                 extent: float | None = None):
+    """`_weld` on the device that holds the rows `v`, `c` (3 a triangle),
+    with the same host arrays out: numpy's keys, welded vertex order,
+    first-occurrence rows and faces; normals equal up to the order of the
+    card's atomic adds. Two host waits (the counts, the copy back) and one
+    copy of the welded arrays.
+
+    np.unique(axis=0) orders the int64 key rows lexicographically; a
+    stable sort of the packed offsets from each axis's least key gives
+    that order when every axis spans fewer than 2^21 keys, which
+    `extent` <= _PACK_EXTENT guarantees (counted ``weld.packed``);
+    otherwise three chained stable sorts do (``weld.lexsort``)."""
+    n = v.shape[0]
+    if n == 0:
+        return _weld(to_host(v), to_host(c))
+    dev = v.device
+    with span("extract.weld"):
+        key = _weld_keys(v)
+        if extent is not None and extent <= _PACK_EXTENT:
+            count("weld.packed")
+            off = key - key.amin(0)
+            srt, perm = torch.sort(
+                (off[:, 0] << 42) | (off[:, 1] << 21) | off[:, 2],
+                stable=True)
+            new = srt[1:] != srt[:-1]
+        else:
+            count("weld.lexsort")
+            perm = torch.arange(n, device=dev)
+            for ax in (2, 1, 0):
+                perm = perm[torch.sort(key[perm, ax], stable=True)[1]]
+            srt = key[perm]
+            new = torch.any(srt[1:] != srt[:-1], dim=1)
+        # welded vertex of each sorted row, scattered back to the soup's
+        gid = torch.cat([new.new_zeros(1, dtype=torch.int64),
+                         torch.cumsum(new, 0)])
+        inverse = torch.empty_like(gid)
+        inverse[perm] = gid
+        faces = inverse.reshape(-1, 3)
+        # drop degenerate faces (repeated welded vertices)
+        ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
+              & (faces[:, 0] != faces[:, 2]))
+        kept = torch.cumsum(ok, 0)
+        counts = torch.stack([gid[-1] + 1, kept[-1]])
+        waited(counts)
+        nv, nf = counts.tolist()
+        # a group's first sorted row is its first occurrence (stable
+        # sort), a kept face is where the running count of kept faces
+        # first reaches its number: both without a host wait
+        first = perm[torch.searchsorted(gid, torch.arange(nv, device=dev))]
+        faces = faces[torch.searchsorted(
+            kept, torch.arange(1, nf + 1, device=dev))]
+        vertices, colors = v[first], c[first]
+        # area-weighted vertex normals, numpy's products and sums one
+        # rounding at a time; the float32 square root correctly rounded
+        # through float64 (the CPU's float32 one is not)
+        tri = vertices[faces]
+        a, b = tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+        nrm = torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                           a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                           a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=1)
+        normals = torch.zeros_like(vertices)
+        for k in range(3):
+            normals.index_add_(0, faces[:, k], nrm)
+        sq = normals * normals
+        ln = torch.sqrt((sq[:, 0] + sq[:, 1] + sq[:, 2]).double())
+        ln = ln.float()[:, None]
+        normals = normals / torch.where(ln > 1e-12, ln, 1.0)
+        drain(dev)
+    with span("extract.to_host"):
+        # one copy back: the float32 arrays' bits beside the int32 faces
+        host = to_host(torch.cat([
+            x.reshape(-1).view(torch.int32)
+            for x in (vertices, colors, normals)]
+            + [faces.to(torch.int32).reshape(-1)]))
+    nv3 = 3 * nv
+    vertices, colors, normals = (
+        host[k * nv3:(k + 1) * nv3].view(np.float32).reshape(nv, 3)
+        for k in range(3))
+    return vertices, host[3 * nv3:].reshape(nf, 3), colors, normals
 
 
 def _weld(v: np.ndarray, c: np.ndarray):

@@ -33,9 +33,10 @@ counter changes (utils/profiling.py) under ``timings["trace"]``:
        ├ extract.surface    cloud: the zero crossings and their compactions
        ├ extract.sample     cloud: the count and the resampling
        ├ extract.march      mesh: the marching soup and its compaction
-       ├ extract.to_host    the copies to the host
+       ├ extract.to_host    the copies to the host (mesh on the card:
+       │                      the soup's masked rows, then the copy back)
        ├ extract.floor      cloud: the floor filter
-       └ extract.weld       mesh: the host weld
+       └ extract.weld       mesh: the weld, on the device of the soup
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ from otslam_tpu_torch.pipeline.dataset import CaptureDataset, FrameBatch
 from otslam_tpu_torch.pipeline.refine import (
     refine_trajectory, refine_trajectory_f2m, refine_trajectory_pgo)
 from otslam_tpu_torch.utils.profiling import (
-    COUNTS, count, recording, span, waited)
+    COUNTS, count, drain, recording, span, waited)
 
 BACKENDS = ("pallas", "sparse", "dense")
 OUTPUTS = ("cloud", "mesh")
@@ -264,13 +265,6 @@ def extract_filtered_cloud(vol, cfg: ReconstructionConfig,
     return ReconstructionResult(p, c, nrm, 0, raw_count)
 
 
-def _drain(timings: dict | None, dev) -> None:
-    """With `timings` given, wait for the device work queued so far, so
-    that a stage's time holds it."""
-    if timings is not None and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
                        cfg: ReconstructionConfig | None = None,
                        backend: str = "pallas", z_filter: bool = True,
@@ -286,7 +280,7 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
     batch holds host arrays, as CaptureDataset.load_object returns them;
     the work runs on `device`. output='cloud' is the filtered sampled
     point cloud; output='mesh' the marching-tetrahedra mesh, welded on the
-    host, with its faces and area-weighted vertex normals (no sampling or
+    device, with its faces and area-weighted vertex normals (no sampling or
     floor filter). auto_origin=True centers (and, unless auto_dims is
     False, sizes) the volume on the observed geometry.
     refine: 'none' trusts the dataset poses (the reference trusts TF),
@@ -318,7 +312,7 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
                     cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
                         cfg.tsdf, origin=auto_volume_origin(batch, intr,
                                                             cfg)))
-            _drain(timings, dev)
+            drain(dev)
         if refine != "none":
             with span("recon.refine"):
                 refined = REFINERS[refine](batch.depths, batch.colors,
@@ -326,11 +320,11 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
                                            device=dev)
                 batch = dataclasses.replace(batch,
                                             extrinsics=refined.extrinsics)
-                _drain(timings, dev)
+                drain(dev)
         with span("recon.fuse"):
             vol = fuse_frames(batch.depths, batch.colors, batch.extrinsics,
                               intr, cfg, backend, densify=False, device=dev)
-            _drain(timings, dev)
+            drain(dev)
         with span("recon.extract"):
             if output == "mesh":
                 verts, faces, cols, normals = extract_mesh(vol)
@@ -339,7 +333,7 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
             else:
                 res = extract_filtered_cloud(vol, cfg, seed=seed,
                                              z_filter=z_filter, draws=draws)
-            _drain(timings, dev)
+            drain(dev)
         res.num_frames = len(batch.names)
         res.extrinsics = np.asarray(batch.extrinsics)
     if timings is not None:

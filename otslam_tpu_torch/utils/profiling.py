@@ -12,7 +12,9 @@ Counters (`COUNTS`, always on, one integer add each):
   (`kernels/_build.check`);
 * ``k1_blocks`` / ``k1_pairs``: the listed blocks and the (block, frame)
   pairs of each K1 work list (`tsdf_cuda.fuse_blocks`);
-* ``recon.objects``: `reconstruct_frames` calls.
+* ``recon.objects``: `reconstruct_frames` calls;
+* ``weld.packed`` / ``weld.lexsort``: card welds that sorted one packed
+  key, or three chained keys (`kernels/marching._weld_device`).
 
 Spans (`span(name)`) are kept only while a `recording()` is open: each
 keeps ``[name, parent, t0_ns, t1_ns]``, its parent being the innermost
@@ -61,6 +63,13 @@ def waited(t: torch.Tensor) -> None:
     `bool()`, `.tolist()` or `nonzero` of a card tensor)."""
     if t.is_cuda:
         COUNTS["syncs"] += 1
+
+
+def drain(dev: torch.device) -> None:
+    """While a recorder is open, wait for the work queued on the card
+    `dev`, so that the open span holds it; otherwise nothing."""
+    if _REC is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 class _Span:

@@ -1,5 +1,6 @@
 """Kernels K1, K2, K3, K4, K5 of otslam_tpu_torch against their plain
-PyTorch versions, on a CUDA GPU. Every test here is marked `cuda` and skips on a
+PyTorch versions, and the mesh weld on the card against numpy's, on a CUDA
+GPU. Every test here is marked `cuda` and skips on a
 machine without one; the same comparisons at the main path's full size are
 phases of chip_smoke.py.
 
@@ -486,3 +487,92 @@ def test_render_lidar_path_rows_equal_render_lidar_on_the_card(dev):
         one = render_lidar(cardboard_room(), *map(float, poses[k]), angles,
                            device=dev)
         assert torch.equal(path[k], one)
+
+
+@pytest.fixture(scope="module")
+def table_object(dev):
+    """The recon.mesh benchmark's object of the most triangles: full_room's
+    table on its capture circle, 9 VGA frames, with the benchmark's
+    settings (program config, intrinsics, host FrameBatch)."""
+    import json
+    from pathlib import Path
+
+    from benchmark.drivers.recon import program_config
+    from benchmark.inputs.captures import make_captures
+    from otslam_tpu_torch.pipeline.dataset import FrameBatch
+    bench = Path(__file__).resolve().parents[1] / "benchmark"
+    cfg = json.loads((bench / "configs/object_recon.json").read_text())
+    traffic = json.loads((bench / "traffic/captures.mesh.json").read_text())
+    traffic["objects"] = ["table_marble"]
+    cap = make_captures(traffic, cfg["camera"], 2 ** 31 + 17,
+                        dev)[0]["table_marble"]
+    pcfg = program_config(cfg)
+    batch = FrameBatch(cap.depths, cap.colors, cap.extrinsics, cap.poses,
+                       [f"table_marble_{i + 1}.jpg"
+                        for i in range(len(cap.depths))])
+    return batch, PinholeIntrinsics.from_config(pcfg.camera), pcfg, \
+        cfg["backend"]
+
+
+@pytest.mark.parametrize("route", ["packed", "lexsort"])
+def test_weld_on_the_card_matches_numpy(dev, table_object, route):
+    """On the fused table: the card weld's keys, vertices, faces and
+    colours equal numpy `_weld`'s of the same soup, normals within 1e-5
+    (the card's atomic adds reorder the sums)."""
+    from otslam_tpu_torch.kernels import marching as mt
+    from otslam_tpu_torch.pipeline import reconstruct as rc
+    batch, intr, pcfg, backend = table_object
+    cfg = rc.auto_volume_config(batch, intr, pcfg)
+    vol = rc.fuse_frames(batch.depths, batch.colors, batch.extrinsics, intr,
+                         cfg, backend, densify=False, device=dev)
+    soup = mt.extract_mesh_soup_block(vol, *mt.auto_mesh_block_config(vol))
+    rows = soup[0][soup[2]].reshape(-1, 3)
+    v = rows.cpu().numpy()
+    assert len(v) > 500_000
+    np.testing.assert_array_equal(mt._weld_keys(rows).cpu().numpy(),
+                                  np.round(v / 1e-5).astype(np.int64))
+    before = dict(COUNTS)
+    got = mt._weld_mesh(*soup, extent=mt._extent(vol) if route == "packed"
+                        else None)
+    assert {r: COUNTS[f"weld.{r}"] - before.get(f"weld.{r}", 0)
+            for r in ("packed", "lexsort")} == {
+        "packed": int(route == "packed"), "lexsort": int(route == "lexsort")}
+    want = mt._weld_mesh(*(a.cpu().numpy() for a in soup))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+    for k in range(3):
+        np.testing.assert_array_equal(got[k], want[k])
+    np.testing.assert_allclose(got[3], want[3], rtol=0, atol=1e-5)
+
+
+def test_mesh_object_syncs_are_the_waits_pytorch_reports(dev, table_object):
+    """One untraced mesh reconstruction of the table: `syncs` equals the
+    synchronizing calls torch.cuda.set_sync_debug_mode reports, at most
+    21, and the weld took the packed key."""
+    import warnings
+
+    from otslam_tpu_torch.pipeline import reconstruct as rc
+    batch, intr, pcfg, backend = table_object
+
+    def mesh():
+        return rc.reconstruct_frames(batch, intr, pcfg, backend=backend,
+                                     output="mesh", auto_origin=True,
+                                     device=dev)
+    mesh()                                           # warms up
+    torch.cuda.synchronize()
+    before = dict(COUNTS)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        del seen[:]             # the mode's own notice, the first time on
+        try:
+            res = mesh()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [w for w in seen if "synchroniz" in str(w.message)]
+    syncs = COUNTS["syncs"] - before["syncs"]
+    assert syncs == len(waits) <= 21, [f"{w.filename}:{w.lineno}"
+                                       for w in waits]
+    assert COUNTS["weld.packed"] - before.get("weld.packed", 0) == 1
+    assert COUNTS["weld.lexsort"] == before.get("weld.lexsort", 0)
+    assert len(res.faces) > 100_000

@@ -46,6 +46,7 @@ from otslam_tpu_torch.kernels.tsdf_block import (
     make_block_volume)
 from otslam_tpu_torch.pipeline.dataset import CaptureDataset
 from otslam_tpu_torch.pipeline.reconstruct import reconstruct_object
+from otslam_tpu_torch.utils.profiling import COUNTS
 from torch_parity import BOX_CENTER, J_SMALL, SMALL_CAM
 
 CFG = TSDFConfig(voxel_size=0.02, sdf_trunc=0.08, dims=(48, 48, 48),
@@ -323,6 +324,93 @@ class TestBlockPath:
         v_big, _ = masked_tris(tm.extract_mesh_soup_block(
             block, max_blocks=512, max_cells=16384))
         np.testing.assert_array_equal(canon(v_a), canon(v_big))
+
+
+class TestDeviceWeld:
+    """`_weld_device` (the weld of a card's soup) run on CPU tensors against
+    numpy's `_weld` of the same rows: vertices, faces and colours equal,
+    normals within 1e-6, through the packed key and the chained sorts."""
+
+    @staticmethod
+    def check(v, c, extent, route):
+        before = dict(COUNTS)
+        got = tm._weld_device(torch.from_numpy(v), torch.from_numpy(c),
+                              extent)
+        want = tm._weld(v, c)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+        for k in range(3):
+            np.testing.assert_array_equal(got[k], want[k])
+        np.testing.assert_allclose(got[3], want[3], rtol=0, atol=1e-6)
+        routes = {r: COUNTS[f"weld.{r}"] - before.get(f"weld.{r}", 0)
+                  for r in ("packed", "lexsort")}
+        assert routes == {"packed": int(route == "packed"),
+                          "lexsort": int(route == "lexsort")}
+        return got
+
+    @pytest.mark.parametrize("route", ["packed", "lexsort"])
+    def test_block_soup_matches_numpy(self, block, route):
+        verts, cols, mask = tm.extract_mesh_soup_block(block, 512, 16384)
+        v = verts[mask].reshape(-1, 3).numpy()
+        c = cols[mask].reshape(-1, 3).numpy()
+        extent = tm._extent(block) if route == "packed" else None
+        welded = self.check(v, c, extent, route)
+        assert 0 < len(welded[0]) < len(v) and len(welded[1]) > 100
+
+    def test_degenerate_triangles(self):
+        """Triangles whose corners weld to one vertex are dropped, as by
+        numpy: corners 4e-6 m apart share a key."""
+        rng = np.random.default_rng(5)
+        p = (rng.integers(0, 40, (60, 3)) * 1e-3).astype(np.float32)
+        tri = rng.integers(0, 60, (300, 3))
+        tri[::7, 1] = tri[::7, 0]                  # repeated corner
+        v = p[tri].reshape(-1, 3)
+        v[1::11] = v[1::11] + np.float32(4e-6)     # near-repeated corners
+        c = rng.random(v.shape).astype(np.float32)
+        welded = self.check(v, c, 1.0, "packed")
+        assert len(welded[1]) < len(tri)
+
+    def test_empty_soup(self):
+        e = np.zeros((0, 3), np.float32)
+        got = tm._weld_device(torch.from_numpy(e), torch.from_numpy(e), 1.0)
+        assert [a.shape for a in got] == [(0, 3)] * 4
+        assert [a.dtype for a in got] == [np.float32, np.int32, np.float32,
+                                          np.float32]
+
+    def test_wide_span_takes_the_chained_sorts(self):
+        """x spans 2.5e6 keys (25 m), past the 21 bits of a packed field."""
+        rng = np.random.default_rng(6)
+        p = rng.uniform(-0.5, 0.5, (500, 3)).astype(np.float32)
+        p[:, 0] = rng.uniform(-12.5, 12.5, 500).astype(np.float32)
+        p[0, 0], p[1, 0] = -12.5, 12.5
+        assert np.ptp(np.round(p[:, 0] / 1e-5)) > 2 ** 21
+        v = p[rng.integers(0, 500, (2000, 3))].reshape(-1, 3)
+        c = rng.random(v.shape).astype(np.float32)
+        self.check(v, c, 25.0, "lexsort")
+
+    def test_ties_take_numpys_keys(self):
+        """Quotients at an exact .5 (float32 division by float32(1e-5))
+        round half to even, as numpy's; at these, multiplying by the
+        reciprocal would round the other way."""
+        k = np.arange(-60000, 60000)
+        x = ((k + 0.5) * 1e-5).astype(np.float32)
+        x = np.concatenate([x, np.nextafter(x, np.float32(1))])
+        d = x / np.float32(1e-5)
+        x = x[d == np.floor(d) + 0.5]
+        recip = np.round(x * (np.float32(1) / np.float32(1e-5)))
+        assert (recip != np.round(x / 1e-5)).sum() > 1000
+        v = np.stack([x, x[::-1], np.roll(x, 1)], axis=1)
+        np.testing.assert_array_equal(
+            tm._weld_keys(torch.from_numpy(v)).numpy(),
+            np.round(v / 1e-5).astype(np.int64))
+        # a tie corner welds with one of its neighbours, 0.4 keys below
+        # and 0.6 above, by the key numpy gives it
+        t = x[np.abs(x) < 0.5][:64]
+        v = np.stack([t, t - np.float32(4e-6), t + np.float32(6e-6)],
+                     axis=1)
+        v = np.repeat(v.reshape(-1, 1), 3, axis=1).astype(np.float32)
+        c = np.ones_like(v)
+        self.check(v, c, 1.0, "packed")
 
 
 class TestCompaction:

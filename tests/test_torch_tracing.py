@@ -10,7 +10,7 @@ This file imports neither jax nor otslam_tpu; on the card run it with
 """
 
 import warnings
-from collections import Counter
+from collections import Counter, defaultdict
 
 import numpy as np
 import pytest
@@ -225,7 +225,8 @@ def test_upload_bytes_are_the_frames_float32_bytes(dev, batch, output):
 @pytest.mark.parametrize("output", ["cloud", "mesh"])
 def test_span_starts_are_their_profiler_ranges(dev, batch, output):
     """Each span starts within 0.1 ms of its record_function range in a
-    profile of the card."""
+    profile of the card (a name opened twice, as the card's mesh opens
+    extract.to_host, pairs its spans and ranges in start order)."""
     from torch.profiler import ProfilerActivity, profile
     reconstruct(batch, output, dev)
     timings = {}
@@ -233,12 +234,17 @@ def test_span_starts_are_their_profiler_ranges(dev, batch, output):
                              ProfilerActivity.CUDA]) as prof:
         reconstruct(batch, output, dev, timings)
     t0 = prof.profiler.kineto_results.trace_start_ns()
-    ranges = {e.name: t0 + 1e3 * e.time_range.start for e in prof.events()
-              if e.name in PROGRAM_RANGES
-              and e.device_type == torch.autograd.DeviceType.CPU}
-    spans = timings["trace"]["spans"]
-    assert set(ranges) == {s[0] for s in spans}
-    gaps = {s[0]: abs(s[2] - ranges[s[0]]) for s in spans}
+    ranges, starts = defaultdict(list), defaultdict(list)
+    for e in prof.events():
+        if e.name in PROGRAM_RANGES and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            ranges[e.name].append(t0 + 1e3 * e.time_range.start)
+    for s in timings["trace"]["spans"]:
+        starts[s[0]].append(s[2])
+    assert {k: len(v) for k, v in ranges.items()} == \
+        {k: len(v) for k, v in starts.items()}
+    gaps = {k: max(abs(a - b) for a, b in zip(sorted(v), sorted(ranges[k])))
+            for k, v in starts.items()}
     assert max(gaps.values()) < 1e5, gaps
 
 
