@@ -12,7 +12,11 @@ nn_window > 0, the radius-limited windowed scan (K4). The JAX package's
 (Open3D's relative fitness / RMSE criteria), one host sync per iteration
 from the third on; ``iterations`` equals the JAX package's. The 3x3 SVD
 and the 6x6 solve stay on the clouds' device; ``torch.linalg.solve_ex``
-adds no error-check sync, ``torch.linalg.svd`` of the 3x3 syncs on CUDA.
+adds no error-check sync, ``torch.linalg.svd`` of the 3x3 waits on the
+card twice (`_svd`). Each of these host waits, and the upload of the
+loop's first previous fitness, is counted in ``syncs``, and every call
+adds its iterations to the process counter ``icp.iterations``
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -21,9 +25,11 @@ from typing import NamedTuple
 
 import torch
 
+from otslam_tpu_torch.device import to_device
 from otslam_tpu_torch.kernels.nn import nn_distance, nn_distance_radius
 from otslam_tpu_torch.kernels.pose_graph import _homogeneous
 from otslam_tpu_torch.kernels.tsdf import recip32
+from otslam_tpu_torch.utils.profiling import count, waited
 
 
 class ICPResult(NamedTuple):
@@ -31,6 +37,14 @@ class ICPResult(NamedTuple):
     fitness: torch.Tensor         # inlier fraction (0-dim)
     inlier_rmse: torch.Tensor     # (0-dim)
     iterations: int
+
+
+def _svd(M: torch.Tensor):
+    """torch.linalg.svd of a 3x3, whose CUDA path waits on the card twice;
+    both waits are counted."""
+    waited(M)
+    waited(M)
+    return torch.linalg.svd(M)
 
 
 def _umeyama_rt(src_pts, dst_pts, weights):
@@ -43,7 +57,7 @@ def _umeyama_rt(src_pts, dst_pts, weights):
     sp = src_pts - cp
     sq = dst_pts - cq
     H = (sp * weights[:, None]).T @ sq                       # (3, 3)
-    U, _, Vh = torch.linalg.svd(H)
+    U, _, Vh = _svd(H)
     d = torch.sign(torch.linalg.det(Vh.T @ U.T))
     one = torch.ones_like(d)
     R = Vh.T @ torch.diag(torch.stack([one, one, d])) @ U.T
@@ -108,6 +122,7 @@ def _keep_going(it, max_iterations, fit, rmse, prev_fit, prev_rmse,
         return True
     keep = ((torch.abs(prev_fit - fit) > relative_fitness)
             | (torch.abs(prev_rmse - rmse) > relative_rmse))
+    waited(keep)
     return bool(keep)
 
 
@@ -133,7 +148,7 @@ def icp_point_to_point(src: torch.Tensor, dst: torch.Tensor,
                           nn_axis)
     T = T0
     _, idx, inlier, fit, rmse = metrics(T)
-    prev_fit = prev_rmse = torch.tensor(-1.0, device=src.device)
+    prev_fit = prev_rmse = to_device(-1.0, src.device, torch.float32)
     it = 0
     while _keep_going(it, max_iterations, fit, rmse, prev_fit, prev_rmse,
                       relative_fitness, relative_rmse):
@@ -146,6 +161,7 @@ def icp_point_to_point(src: torch.Tensor, dst: torch.Tensor,
         _, idx, inlier, fit, rmse = metrics(T_new)
         T = T_new
         it += 1
+    count("icp.iterations", it)
     return ICPResult(T, fit, rmse, it)
 
 
@@ -176,7 +192,7 @@ def _plane_step(p, q, nrm, w):
                      torch.stack([wz, one, -wx]),
                      torch.stack([-wy, wx, one])])
     # re-orthonormalize the small-angle rotation via SVD projection
-    U, _, Vh = torch.linalg.svd(R)
+    U, _, Vh = _svd(R)
     Rn = U @ Vh
     Rn = Rn * torch.sign(torch.linalg.det(Rn))
     return _homogeneous(Rn, x[3:])
@@ -206,7 +222,7 @@ def icp_point_to_plane(src: torch.Tensor, dst: torch.Tensor,
     T = T0
     _, idx, inlier, fit, rmse = metrics(T)
     best_T, best_fit, best_rmse = T0, fit, rmse
-    prev_fit = prev_rmse = torch.tensor(-1.0, device=src.device)
+    prev_fit = prev_rmse = to_device(-1.0, src.device, torch.float32)
     it = 0
     while _keep_going(it, max_iterations, fit, rmse, prev_fit, prev_rmse,
                       relative_fitness, relative_rmse):
@@ -224,6 +240,7 @@ def icp_point_to_plane(src: torch.Tensor, dst: torch.Tensor,
         best_fit = torch.where(better, fit, best_fit)
         best_rmse = torch.where(better, rmse, best_rmse)
         it += 1
+    count("icp.iterations", it)
     use_best = fit < 0.05
     return ICPResult(torch.where(use_best, best_T, T),
                      torch.where(use_best, best_fit, fit),

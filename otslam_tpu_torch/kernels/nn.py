@@ -27,16 +27,30 @@ VMEM size routing (_WINDOWED_MAX_DST, _nn_vmem_params), the 128-aligned
 window reads and the traced fit flag with its fall-back to the full kernel
 (K4 scans exactly the range each tile needs, and an unsorted destination
 gives every tile the whole range).
+
+Process counters (utils/profiling.py) count the (source, destination)
+rows the scans cover, padding and masked rows included. ``nn.pairs``
+counts n x m for every full scan (K3), on the host. A windowed scan's
+rows, the sum over its tiles of (c1 - c0) x 1024 x 256, live on the
+device, so they are counted only inside a `window_tally()`: its `pairs()`
+sums them on the device with no host wait, and its opener hands the host
+value, fetched in a copy it makes anyway (pipeline/refine.py's pose
+fetch), to `fold`, which adds it to ``nn.window_pairs`` and the scans to
+``nn.window_scans``. A windowed scan outside a tally adds to neither, so
+``nn.window_scans`` below ``launches.otslam_nn_window`` tells that some
+scans' rows went uncounted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
 
 from otslam_tpu_torch.kernels import _build
+from otslam_tpu_torch.utils.profiling import count
 
 BIG = 3.0e38        # f32 "no valid destination" distance (nn._BIG)
 SRC_CHUNK = 4096    # source rows per step of the plain version ...
@@ -48,6 +62,46 @@ DST_CHUNK = 1024    # destination rows per window chunk (nn._DST_CHUNK)
 BLOCKS_PER_SM = 2   # K3/K4 split each tile's range below this many blocks
 SPLIT_BLOCKS_PER_SM = 8  # ... into enough splits for this many blocks
 MIN_SPLIT_DST = 256  # ... but give a split at least this many destinations
+
+_TALLY: WindowTally | None = None   # the open window_tally, if any
+
+
+class WindowTally:
+    """The chunk ranges (c0, c1) of every windowed scan made while it is
+    open (see `window_tally`)."""
+
+    def __init__(self):
+        self.ranges: list = []
+
+    def pairs(self) -> torch.Tensor | None:
+        """The scans' (source, destination) rows, sum over scans and tiles
+        of (c1 - c0) x 1024 x 256, as a 0-dim int64 tensor on the ranges'
+        device (no host wait); None when no windowed scan ran."""
+        if not self.ranges:
+            return None
+        c0 = torch.cat([r[0] for r in self.ranges]).to(torch.int64)
+        c1 = torch.cat([r[1] for r in self.ranges]).to(torch.int64)
+        return torch.sum(c1 - c0) * (DST_CHUNK * SRC_TILE)
+
+    def fold(self, pairs: int):
+        """Count `pairs`, the host value of `pairs()`, in
+        ``nn.window_pairs`` and the tally's scans in ``nn.window_scans``."""
+        count("nn.window_pairs", pairs)
+        count("nn.window_scans", len(self.ranges))
+
+
+@contextlib.contextmanager
+def window_tally():
+    """Keep the chunk ranges of every windowed scan made in the block in a
+    new `WindowTally`, which the block receives; the tally open before it
+    (if any) resumes after and misses the block's scans."""
+    global _TALLY
+    prev, tally = _TALLY, WindowTally()
+    _TALLY = tally
+    try:
+        yield tally
+    finally:
+        _TALLY = prev
 
 
 def split_count(n: int, m: int, sms: int) -> int:
@@ -137,9 +191,10 @@ def nn_min_torch(src: torch.Tensor, dst: torch.Tensor,
 def nn_min(src: torch.Tensor, dst: torch.Tensor, dst_mask: torch.Tensor):
     """(best_d2, best_i) of each source point: kernel K3 on CUDA tensors,
     the plain version on CPU tensors. Identical results either way."""
+    n, m = src.shape[0], dst.shape[0]
+    count("nn.pairs", n * m)
     if src.device.type == "cpu":
         return nn_min_torch(src, dst, dst_mask)
-    n, m = src.shape[0], dst.shape[0]
     srcc, dstc, maskc = _operands(src, dst, dst_mask)
     splits = split_count(n, m, sm_count(src.device))
     best_d, best_i, parts = _outputs(n, splits, src.device)
@@ -290,7 +345,10 @@ def nn_min_windowed(src: torch.Tensor, dstp: torch.Tensor,
                     c1: torch.Tensor):
     """(best_d2, best_i) of each source point over its tile's chunk range
     (window_ranges' operands): kernel K4 on CUDA tensors, the plain
-    version on CPU tensors. Identical results either way."""
+    version on CPU tensors. Identical results either way. Inside a
+    `window_tally()` the ranges are kept for its `pairs()`."""
+    if _TALLY is not None:
+        _TALLY.ranges.append((c0, c1))
     if src.device.type == "cpu":
         return nn_min_windowed_torch(src, dstp, dmaskp, c0, c1)
     n, mp = src.shape[0], dstp.shape[0]

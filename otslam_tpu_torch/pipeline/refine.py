@@ -15,6 +15,21 @@ per registered pair or tracked frame. Every fusion passes `max_active` to
 the block-sparse path (the JAX package's fixed 2048-block capacity per
 frame, which the port keeps on purpose: frame-to-model tracking runs
 against the model fused under that cap).
+
+Every host wait here is counted in ``syncs`` (utils/profiling.py), with the
+counters ``icp.pairs`` (frame pairs registered by ICP) and
+``refine.fallbacks`` (corrections the trust region rejected); the rows of
+each pair's windowed scans, tallied on the device, come home in the pose
+fetch's copy and go to ``nn.window_pairs`` and ``nn.window_scans``
+(kernels/nn.py). Under a recorder,
+``refine_trajectory`` keeps the spans
+
+    refine.upload   the frames to the device
+    refine.frames   points and normals from each frame's depth gradients
+    refine.window   the host fetch of a pair's clouds and auto_nn_window
+    refine.icp      one pair's annealed ICP
+    refine.chain    the pose fetch, the trust region and the host compose
+    refine.fuse     the fusion of the frames at the refined poses
 """
 
 from __future__ import annotations
@@ -28,13 +43,17 @@ import torch
 from otslam_tpu_torch.config import ReconstructionConfig
 from otslam_tpu_torch.core.camera import PinholeIntrinsics
 from otslam_tpu_torch.core.se3 import invert_se3
-from otslam_tpu_torch.device import resolve_device, to_f32
+from otslam_tpu_torch.device import resolve_device, to_device, to_f32, to_host
 from otslam_tpu_torch.kernels.icp import icp_point_to_plane
-from otslam_tpu_torch.kernels.nn import auto_nn_window
+from otslam_tpu_torch.kernels.nn import auto_nn_window, window_tally
 from otslam_tpu_torch.kernels.pose_graph import optimize_pose_graph
 from otslam_tpu_torch.kernels.track import track_frame_to_tsdf
 from otslam_tpu_torch.kernels.tsdf_block import (integrate_frames_sparse,
                                                  make_block_volume)
+from otslam_tpu_torch.utils.profiling import count, span, waited
+
+
+PAIR_ICP_ITERATIONS = 15    # a frame pair's ICP iterations at each threshold
 
 
 @dataclass
@@ -49,7 +68,7 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c as a true division on every device (the JAX package divides
     eagerly here; PyTorch's CUDA division by a Python scalar multiplies by
     its reciprocal instead)."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    return x / to_device(c, x.device, x.dtype)
 
 
 def _pixel_grid(depth: torch.Tensor, intr: PinholeIntrinsics, stride: int):
@@ -105,8 +124,8 @@ def _pair_nn_window(pts_a, pts_b, radius) -> tuple[int, int]:
     """(nn_window, nn_axis) for frame-pair ICP, sized from the concrete
     clouds (invalid rows included: they sort into the window too) and
     rounded to a multiple of 2, as the JAX package does. One host fetch of
-    both clouds."""
-    return auto_nn_window(pts_a.cpu().numpy(), pts_b.cpu().numpy(), radius,
+    each cloud."""
+    return auto_nn_window(to_host(pts_a), to_host(pts_b), radius,
                           round_to=2)
 
 
@@ -121,7 +140,8 @@ def _annealed_icp(src, pts_i, nrm_i, valid_i, valid_j, thresholds,
     for thr in thresholds:
         res = icp_point_to_plane(src, pts_i, nrm_i, threshold=thr,
                                  init=T_acc, src_mask=valid_j,
-                                 dst_mask=valid_i, max_iterations=15,
+                                 dst_mask=valid_i,
+                                 max_iterations=PAIR_ICP_ITERATIONS,
                                  nn_window=nn_w, nn_axis=nn_ax)
         T_acc = res.transformation
     return res
@@ -129,9 +149,40 @@ def _annealed_icp(src, pts_i, nrm_i, valid_i, valid_j, thresholds,
 
 def _moved(pts: torch.Tensor, T: np.ndarray) -> torch.Tensor:
     """pts moved by the host transform T (rounded to f32)."""
-    R = torch.as_tensor(T[:3, :3].T.astype(np.float32), device=pts.device)
-    t = torch.as_tensor(T[:3, 3].astype(np.float32), device=pts.device)
+    R = to_device(T[:3, :3].T.astype(np.float32), pts.device)
+    t = to_device(T[:3, 3].astype(np.float32), pts.device)
     return pts @ R + t
+
+
+def _fetched(t: torch.Tensor) -> float:
+    """A 0-dim tensor's value on the host (a host wait on the card)."""
+    waited(t)
+    return float(t)
+
+
+def _pair_transform(T: torch.Tensor, tally) -> np.ndarray:
+    """A pair's ICP transform (4, 4) as a host float64 array. The rows of
+    the windowed scans in `tally` (nn.window_tally), summed on the device,
+    come home in the same copy and are folded into its counters."""
+    flat = T.reshape(-1).to(torch.float64)
+    pairs = tally.pairs()
+    if pairs is not None:
+        flat = torch.cat([flat, pairs.to(torch.float64).reshape(1)])
+    host = to_host(flat)
+    if pairs is not None:
+        tally.fold(int(host[16]))
+    return host[:16].reshape(4, 4)
+
+
+def _outside_trust(dT: np.ndarray, trust_rot: float,
+                   trust_translation: float) -> bool:
+    """True, and counted in ``refine.fallbacks``, when the correction dT
+    turns by more than trust_rot or moves by more than trust_translation."""
+    out = bool(_rotation_angle(dT[:3, :3]) > trust_rot
+               or np.linalg.norm(dT[:3, 3]) > trust_translation)
+    if out:
+        count("refine.fallbacks")
+    return out
 
 
 def _rotation_angle(R: np.ndarray):
@@ -156,39 +207,49 @@ def refine_trajectory(depths, colors, extrinsics, intr: PinholeIntrinsics,
     tensors, extrinsics (N,4,4) world->camera priors as a host array; the
     work runs on `device`."""
     dev = resolve_device(device)
-    depths_t, colors_t = to_f32(depths, dev), to_f32(colors, dev)
+    with span("refine.upload"):
+        depths_t, colors_t = to_f32(depths, dev), to_f32(colors, dev)
     ext = np.asarray(extrinsics, np.float64)
     n = depths_t.shape[0]
     out_ext = [ext[0]]
     fitness, rmses = [], []
 
-    prev_pts, prev_nrm, prev_valid = _frame_points_normals(depths_t[0], intr,
-                                                           stride)
+    with span("refine.frames"):
+        prev_pts, prev_nrm, prev_valid = _frame_points_normals(
+            depths_t[0], intr, stride)
     for i in range(1, n):
-        cur_pts, cur_nrm, cur_valid = _frame_points_normals(depths_t[i],
-                                                            intr, stride)
-        # per-pair window, sized at the widest annealing threshold
-        window = _pair_nn_window(cur_pts, prev_pts, max(thresholds))
+        with span("refine.frames"):
+            cur_pts, cur_nrm, cur_valid = _frame_points_normals(
+                depths_t[i], intr, stride)
+        with span("refine.window"):
+            # per-pair window, sized at the widest annealing threshold
+            window = _pair_nn_window(cur_pts, prev_pts, max(thresholds))
         # prior relative transform camera_i -> camera_{i-1}
         Tr_prior = ext[i - 1] @ invert_se3(ext[i])
-        res = _annealed_icp(_moved(cur_pts, Tr_prior), prev_pts, prev_nrm,
-                            prev_valid, cur_valid, thresholds, window)
-        dT = res.transformation.cpu().numpy().astype(np.float64)
-        # trust region around the odometry prior: low-overlap pairs can
-        # score a wrong pose higher (density sliding)
-        if (_rotation_angle(dT[:3, :3]) > trust_rot
-                or np.linalg.norm(dT[:3, 3]) > trust_translation):
-            dT = np.eye(4)
-        # E_i = Tr^{-1} E_{i-1}, chained through the corrected predecessor
-        out_ext.append(invert_se3(dT @ Tr_prior) @ out_ext[-1])
-        fitness.append(float(res.fitness))
-        rmses.append(float(res.inlier_rmse))
+        with span("refine.icp"), window_tally() as tally:
+            res = _annealed_icp(_moved(cur_pts, Tr_prior), prev_pts,
+                                prev_nrm, prev_valid, cur_valid, thresholds,
+                                window)
+        count("icp.pairs")
+        with span("refine.chain"):
+            dT = _pair_transform(res.transformation, tally)
+            # trust region around the odometry prior: low-overlap pairs can
+            # score a wrong pose higher (density sliding)
+            if _outside_trust(dT, trust_rot, trust_translation):
+                dT = np.eye(4)
+            # E_i = Tr^{-1} E_{i-1}, chained through the corrected
+            # predecessor
+            out_ext.append(invert_se3(dT @ Tr_prior) @ out_ext[-1])
+            fitness.append(_fetched(res.fitness))
+            rmses.append(_fetched(res.inlier_rmse))
         prev_pts, prev_nrm, prev_valid = cur_pts, cur_nrm, cur_valid
 
     ext_out = np.stack(out_ext).astype(np.float32)
-    vol = integrate_frames_sparse(make_block_volume(cfg.tsdf, dev), depths_t,
-                                  colors_t, to_f32(ext_out, dev), intr,
-                                  max_active=max_active)
+    with span("refine.fuse"):
+        vol = integrate_frames_sparse(make_block_volume(cfg.tsdf, dev),
+                                      depths_t, colors_t,
+                                      to_f32(ext_out, dev), intr,
+                                      max_active=max_active)
     return RefineResult(ext_out, vol, fitness, rmses)
 
 
@@ -221,16 +282,15 @@ def refine_trajectory_f2m(depths, colors, extrinsics, intr: PinholeIntrinsics,
         res = track_frame_to_tsdf(vol, pts, mask,
                                   to_f32(invert_se3(E_prior), dev),
                                   max_iterations=max_iterations)
-        T = res.transformation.cpu().numpy().astype(np.float64)
+        T = to_host(res.transformation).astype(np.float64)
         dT = T @ E_prior                        # camera->world correction
-        if (_rotation_angle(dT[:3, :3]) > trust_rot
-                or np.linalg.norm(dT[:3, 3]) > trust_translation):
+        if _outside_trust(dT, trust_rot, trust_translation):
             corrected = E_prior
         else:
             corrected = invert_se3(T)
         out_ext.append(corrected)
-        fitness.append(float(res.inlier_fraction))
-        rmses.append(float(res.rmse))
+        fitness.append(_fetched(res.inlier_fraction))
+        rmses.append(_fetched(res.rmse))
         vol = integrate_frames_sparse(vol, depths_t[i:i + 1],
                                       colors_t[i:i + 1],
                                       to_f32(corrected[None], dev), intr,
@@ -248,11 +308,14 @@ def _register_pair(pts_i, nrm_i, valid_i, pts_j, valid_j, prior_rel,
     is the prior camera_j -> camera_i transform. Returns (M, fitness,
     rmse) with M the measured camera_j -> camera_i transform."""
     src = _moved(pts_j, prior_rel)
-    res = _annealed_icp(src, pts_i, nrm_i, valid_i, valid_j, thresholds,
-                        _pair_nn_window(src, pts_i, max(thresholds)))
-    M = (res.transformation.cpu().numpy().astype(np.float64)
+    window = _pair_nn_window(src, pts_i, max(thresholds))
+    with window_tally() as tally:
+        res = _annealed_icp(src, pts_i, nrm_i, valid_i, valid_j, thresholds,
+                            window)
+    count("icp.pairs")
+    M = (_pair_transform(res.transformation, tally)
          @ np.asarray(prior_rel, np.float64))
-    return M, float(res.fitness), float(res.inlier_rmse)
+    return M, _fetched(res.fitness), _fetched(res.inlier_rmse)
 
 
 def detect_loop_closures(depths, extrinsics, intr: PinholeIntrinsics,
@@ -346,8 +409,7 @@ def refine_trajectory_pgo(depths, colors, extrinsics, intr: PinholeIntrinsics,
             M, fit, rmse = _register_pair(pi, ni, vi, pj, vj, prior_rel)
             # trust region: keep the odometry prior on failed registrations
             dT = M @ invert_se3(prior_rel)
-            if (_rotation_angle(dT[:3, :3]) > 0.2
-                    or np.linalg.norm(dT[:3, 3]) > 0.2 or fit < 0.3):
+            if _outside_trust(dT, 0.2, 0.2) or fit < 0.3:
                 M = prior_rel
             ei.append(i)
             ej.append(i + 1)
