@@ -52,6 +52,11 @@ wrong:
    50k x 50k with a 0.05 m radius and at the pair-ICP shape: two
    consecutive capture frames through refine._frame_points_normals, the
    source moved by the prior, the window of _pair_nn_window, radius 0.1 m;
+   then that pair's annealed ICP with the fused kernels
+   (refine._annealed_icp: csrc/icp_plane.cu and K4) beside the host loop
+   (refine._annealed_icp_plain): transform, fitness and RMSE bit for bit,
+   with each one's wall milliseconds (to a synchronize) and the fused
+   kernels' and K4's device milliseconds against the fused loop's;
 6. registration path: the phase-4 capture with its poses drifted by
    compounding odometry noise goes through reconstruct_frames with
    refine="icp" and refine="pgo", then write_ply -> read_ply ->
@@ -314,6 +319,7 @@ ENTRY_POINTS = {"depth_mips": "otslam_depth_mips",
                 "classify_blocks": "otslam_classify",
                 "pack_rgb": "otslam_pack_rgb", "fuse_blocks": "otslam_fuse",
                 "nn_min": "otslam_nn", "nn_min_windowed": "otslam_nn_window",
+                "icp_prep": "otslam_icp_prep", "icp_terms": "otslam_icp_terms",
                 "ray_keys": "otslam_raycast"}
 
 
@@ -885,6 +891,57 @@ def pair_icp_clouds(batch, intr, dev):
     return src, dst, dmask, axis, window
 
 
+def pair_icp_loops(batch, intr, dev):
+    """One pair's annealed ICP (frames 1 onto 0, as refine_trajectory
+    prepares it) with the fused kernels and on the host loop: the two
+    bit-identical, then each one's wall milliseconds to a synchronize, and
+    the fused loop's kernels' and K4's device milliseconds."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from otslam_tpu_torch.core.se3 import invert_se3
+    from otslam_tpu_torch.pipeline import refine
+    depths = torch.as_tensor(batch.depths[:2], device=dev)
+    pp, pn, pv = refine._frame_points_normals(depths[0], intr)
+    cp, _, cv = refine._frame_points_normals(depths[1], intr)
+    window = refine._pair_nn_window(cp, pp, PAIR_RADIUS)
+    ext = np.asarray(batch.extrinsics, np.float64)
+    src = refine._moved(cp, ext[0] @ invert_se3(ext[1]))
+    thresholds = (0.1, 0.05, 0.02)
+    args = (src, pp, pn, pv, cv, thresholds, window)
+    loops = {"fused": lambda: refine._annealed_icp(*args),
+             "host": lambda: refine._annealed_icp_plain(*args)}
+    got = {k: fn() for k, fn in loops.items()}
+    torch.cuda.synchronize()
+    a, b = got["fused"], got["host"]
+    gap = float((a.transformation - b.transformation).abs().max())
+    check(all(bool(torch.equal(x, y)) for x, y in zip(a[:3], b[:3]))
+          and a.iterations == b.iterations,
+          f"pair ICP: the fused kernels' transform is {gap} off the host "
+          f"loop's, fitness {float(a.fitness)} against {float(b.fitness)}")
+    wall = {}
+    for k, fn in loops.items():
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        wall[k] = (time.perf_counter() - t0) * 100.0
+    fused = ("icp_prep_kernel", "icp_terms_kernel", "icp_eval_kernel",
+             "icp_rotation_kernel", "icp_dt_kernel")
+    kernels = {"fused": kernel_ms(loops["fused"], 5, fused),
+               "K4": kernel_ms(loops["fused"], 5,
+                               ("nn_window_kernel", "nn_merge_kernel"))}
+    log(f"  pair ICP {src.shape[0]} x {pp.shape[0]}, window {window}: "
+        f"{a.iterations} iterations in the last stage, fitness "
+        f"{float(a.fitness):.6f}, bit-identical to the host loop; wall "
+        f"fused {wall['fused']:.4f} ms, host loop {wall['host']:.4f} ms; "
+        f"device time of the fused kernels {fmt_ms(kernels['fused'])}, "
+        f"of K4 {fmt_ms(kernels['K4'])}")
+    return {"wall_ms": wall, "kernel_ms": kernels}
+
+
 def k4_shape(nn, label, src, dst, mask, radius, axis, dev):
     """K4 at one shape: bit-identical to its plain version, equal to K3 on
     every in-radius row, >= the radius elsewhere; then its times."""
@@ -957,7 +1014,8 @@ def phase_k4(dev, batch, intr):
         f"shape, and to K3 on every in-radius row; nn_distance_radius "
         f"(ranges + K4 + recompute) at 50k x 50k {wrapper_ms:.4f} ms; "
         f"pair-ICP window {pwin} chunks")
-    return {**shapes[0], "shapes": shapes}
+    pair = pair_icp_loops(batch, intr, dev)
+    return {**shapes[0], "shapes": shapes, "pair_icp": pair}
 
 
 def phase_reconstruct(batch, intr, cfg, dev, gt):
@@ -2801,8 +2859,8 @@ def smoke() -> int:
     torch.cuda.synchronize()
     reg_launches = launch_counts(base)
     log(f"registration path launches {reg_launches}")
-    check(all(reg_launches[k] > 0
-              for k in fusion + ("nn_min", "nn_min_windowed")),
+    check(all(reg_launches[k] > 0 for k in fusion + (
+        "nn_min", "nn_min_windowed", "icp_prep", "icp_terms")),
           f"a kernel of the registration path never launched: "
           f"{reg_launches}")
 

@@ -70,6 +70,17 @@ SIGNATURES = {
     "otslam_nn_window": [_P, _P, _P, _P, _P,            # src dst mask c0 c1
                          _I, _I, _I, _P, _P, _P, _P],   # n mp S bd bi parts
                                                         # stream
+    "otslam_icp_prep": [_P, _P, _P, _P, _P,             # src T lo hi ok
+                        _I, _I, _I, _F, _I,             # n chunks axis r full
+                        _P, _P, _P, _P],                # p c0 c1 stream
+    "otslam_icp_terms": [_P, _P, _P, _P, _P, _P,        # p smask dst nrm bd bi
+                         _I, _I, _F,                    # n m threshold
+                         _P, _P, _P, _P, _P, _P],       # J Jw r dd state stream
+    "otslam_icp_eval": [_P, _P, _P, _P, _P,             # state T sdd A g
+                        _I, _I, _F, _F,                 # it max rel_fit rel_rmse
+                        _P, _P, _P],                    # Ad b stream
+    "otslam_icp_rotation": [_P, _P, _P, _P],            # x xs R stream
+    "otslam_icp_dt": [_P, _P, _P, _P],                  # Rn xs dT stream
     "otslam_raycast": [_P, _I, _I, _P, _P, _P, _I, _I,  # grid H W cos sin xy B KB
                        _I, _F, _F, _F,                  # S res ox oy
                        _I, _I, _I,                      # lanes blocks threads

@@ -16,6 +16,11 @@ the block-sparse path (the JAX package's fixed 2048-block capacity per
 frame, which the port keeps on purpose: frame-to-model tracking runs
 against the model fused under that cap).
 
+A pair's annealed ICP runs on the card with fused kernels
+(kernels/icp.py icp_plane_annealed; on the CPU its plain version, the host
+loop of icp_point_to_plane at each threshold), and its pose, fitness and
+RMSE come home in one copy.
+
 Every host wait here is counted in ``syncs`` (utils/profiling.py), with the
 counters ``icp.pairs`` (frame pairs registered by ICP) and
 ``refine.fallbacks`` (corrections the trust region rejected); the rows of
@@ -44,7 +49,8 @@ from otslam_tpu_torch.config import ReconstructionConfig
 from otslam_tpu_torch.core.camera import PinholeIntrinsics
 from otslam_tpu_torch.core.se3 import invert_se3
 from otslam_tpu_torch.device import resolve_device, to_device, to_f32, to_host
-from otslam_tpu_torch.kernels.icp import icp_point_to_plane
+from otslam_tpu_torch.kernels.icp import (icp_plane_annealed,
+                                          icp_point_to_plane)
 from otslam_tpu_torch.kernels.nn import auto_nn_window, window_tally
 from otslam_tpu_torch.kernels.pose_graph import optimize_pose_graph
 from otslam_tpu_torch.kernels.track import track_frame_to_tsdf
@@ -132,8 +138,23 @@ def _pair_nn_window(pts_a, pts_b, radius) -> tuple[int, int]:
 def _annealed_icp(src, pts_i, nrm_i, valid_i, valid_j, thresholds,
                   window: tuple[int, int]):
     """Point-to-plane ICP of src onto frame i, re-solved at each threshold
-    from the previous stage's pose, with the (nn_window, nn_axis) given.
-    Returns the last ICPResult."""
+    from the previous stage's pose, with the (nn_window, nn_axis) given:
+    on the card icp_plane_annealed's fused kernels, on the CPU their plain
+    version. Returns the last stage's ICPResult."""
+    if src.device.type == "cpu":
+        return _annealed_icp_plain(src, pts_i, nrm_i, valid_i, valid_j,
+                                   thresholds, window)
+    nn_w, nn_ax = window
+    return icp_plane_annealed(src, pts_i, nrm_i, thresholds,
+                              src_mask=valid_j, dst_mask=valid_i,
+                              max_iterations=PAIR_ICP_ITERATIONS,
+                              nn_window=nn_w, nn_axis=nn_ax)
+
+
+def _annealed_icp_plain(src, pts_i, nrm_i, valid_i, valid_j, thresholds,
+                        window: tuple[int, int]):
+    """The plain version of _annealed_icp: icp_point_to_plane's host loop
+    at each threshold, chained. Returns the last ICPResult."""
     nn_w, nn_ax = window
     T_acc = torch.eye(4, dtype=torch.float32, device=src.device)
     res = None
@@ -160,18 +181,20 @@ def _fetched(t: torch.Tensor) -> float:
     return float(t)
 
 
-def _pair_transform(T: torch.Tensor, tally) -> np.ndarray:
-    """A pair's ICP transform (4, 4) as a host float64 array. The rows of
-    the windowed scans in `tally` (nn.window_tally), summed on the device,
-    come home in the same copy and are folded into its counters."""
-    flat = T.reshape(-1).to(torch.float64)
+def _pair_result(res, tally) -> tuple[np.ndarray, float, float]:
+    """A pair's ICP transform (4, 4) as a host float64 array, its fitness
+    and inlier RMSE, in one copy. The rows of the windowed scans in `tally`
+    (nn.window_tally), summed on the device, come home in the same copy
+    and are folded into its counters."""
+    parts = [res.transformation.reshape(-1), res.fitness.reshape(1),
+             res.inlier_rmse.reshape(1)]
     pairs = tally.pairs()
     if pairs is not None:
-        flat = torch.cat([flat, pairs.to(torch.float64).reshape(1)])
-    host = to_host(flat)
+        parts.append(pairs.reshape(1))
+    host = to_host(torch.cat([t.to(torch.float64) for t in parts]))
     if pairs is not None:
-        tally.fold(int(host[16]))
-    return host[:16].reshape(4, 4)
+        tally.fold(int(host[18]))
+    return host[:16].reshape(4, 4), float(host[16]), float(host[17])
 
 
 def _outside_trust(dT: np.ndarray, trust_rot: float,
@@ -232,7 +255,7 @@ def refine_trajectory(depths, colors, extrinsics, intr: PinholeIntrinsics,
                                 window)
         count("icp.pairs")
         with span("refine.chain"):
-            dT = _pair_transform(res.transformation, tally)
+            dT, fit, rmse = _pair_result(res, tally)
             # trust region around the odometry prior: low-overlap pairs can
             # score a wrong pose higher (density sliding)
             if _outside_trust(dT, trust_rot, trust_translation):
@@ -240,8 +263,8 @@ def refine_trajectory(depths, colors, extrinsics, intr: PinholeIntrinsics,
             # E_i = Tr^{-1} E_{i-1}, chained through the corrected
             # predecessor
             out_ext.append(invert_se3(dT @ Tr_prior) @ out_ext[-1])
-            fitness.append(_fetched(res.fitness))
-            rmses.append(_fetched(res.inlier_rmse))
+            fitness.append(fit)
+            rmses.append(rmse)
         prev_pts, prev_nrm, prev_valid = cur_pts, cur_nrm, cur_valid
 
     ext_out = np.stack(out_ext).astype(np.float32)
@@ -313,9 +336,8 @@ def _register_pair(pts_i, nrm_i, valid_i, pts_j, valid_j, prior_rel,
         res = _annealed_icp(src, pts_i, nrm_i, valid_i, valid_j, thresholds,
                             window)
     count("icp.pairs")
-    M = (_pair_transform(res.transformation, tally)
-         @ np.asarray(prior_rel, np.float64))
-    return M, _fetched(res.fitness), _fetched(res.inlier_rmse)
+    dT, fit, rmse = _pair_result(res, tally)
+    return dT @ np.asarray(prior_rel, np.float64), fit, rmse
 
 
 def detect_loop_closures(depths, extrinsics, intr: PinholeIntrinsics,

@@ -1,5 +1,6 @@
 """Kernels K1, K2, K3, K4, K5 of otslam_tpu_torch against their plain
-PyTorch versions, and the mesh weld on the card against numpy's, on a CUDA
+PyTorch versions, the mesh weld on the card against numpy's, and pair
+ICP's fused kernels (csrc/icp_plane.cu) against its host loop, on a CUDA
 GPU. Every test here is marked `cuda` and skips on a
 machine without one; the same comparisons at the main path's full size are
 phases of chip_smoke.py.
@@ -576,3 +577,250 @@ def test_mesh_object_syncs_are_the_waits_pytorch_reports(dev, table_object):
     assert COUNTS["weld.packed"] - before.get("weld.packed", 0) == 1
     assert COUNTS["weld.lexsort"] == before.get("weld.lexsort", 0)
     assert len(res.faces) > 100_000
+
+
+# ---------------------------------------------------------------------------
+# Pair ICP's fused kernels (kernels/icp.py icp_plane_annealed) against the
+# plain host loop, both on the card: equal bit for bit
+# ---------------------------------------------------------------------------
+
+THRESHOLDS = (0.1, 0.05, 0.02)      # refine_trajectory's
+BOX_THRESHOLDS = (0.05, 0.02, 0.01)  # the box's few-mm motion
+
+
+def box_clouds(shift=(0.0012, -0.001, 0.0008), seed=4):
+    """dst: a jittered lattice on a 0.5 x 0.4 x 0.3 m box's faces with
+    outward normals; src: dst moved by -shift and a small turn, with 0.2 mm
+    noise, 300 outliers 0.2 m off the surface, shuffled; a src mask drops
+    5 % (float32, host)."""
+    rng = np.random.default_rng(seed)
+    half = np.array([0.25, 0.2, 0.15])
+    pts, nrm = [], []
+    for axis in range(3):
+        u, v = [k for k in range(3) if k != axis]
+        gu = np.arange(-half[u] + 0.012, half[u] - 0.006, 0.012)
+        gv = np.arange(-half[v] + 0.012, half[v] - 0.006, 0.012)
+        uu, vv = np.meshgrid(gu, gv, indexing="ij")
+        for sign in (-1.0, 1.0):
+            p = np.zeros((uu.size, 3))
+            p[:, u], p[:, v] = uu.ravel(), vv.ravel()
+            p[:, axis] = sign * half[axis]
+            p[:, [u, v]] += rng.uniform(-0.001, 0.001, (uu.size, 2))
+            n = np.zeros((uu.size, 3))
+            n[:, axis] = sign
+            pts.append(p)
+            nrm.append(n)
+    dst = np.concatenate(pts) + [1.5, 0.5, 0.15]
+    nrm = np.concatenate(nrm)
+    a = 0.003
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                  [0, 0, 1]])
+    src = (dst - [1.5, 0.5, 0.15]) @ R.T + [1.5, 0.5, 0.15] - shift
+    src = src + rng.normal(0, 0.0002, src.shape)
+    src = np.concatenate([src, dst[:300] + 0.2 * nrm[:300]])
+    src = src[rng.permutation(len(src))]
+    smask = rng.random(len(src)) > 0.05
+    return (src.astype(np.float32), dst.astype(np.float32),
+            nrm.astype(np.float32), smask)
+
+
+def covering(dst, axis=2):
+    """A window of every chunk: the host loop takes K3, the fused loop
+    K4 over the whole destination."""
+    return -(-dst.shape[0] // nn.DST_CHUNK), axis
+
+
+def host_loop(src, dst, nrm, smask, dmask, thresholds, window, **kw):
+    """The plain annealed loop, icp_point_to_plane chained over the
+    thresholds (refine._annealed_icp_plain), with each stage's
+    iterations."""
+    from otslam_tpu_torch.kernels.icp import icp_point_to_plane
+    T = torch.eye(4, dtype=torch.float32, device=src.device)
+    its = []
+    for thr in thresholds:
+        res = icp_point_to_plane(src, dst, nrm, threshold=thr, init=T,
+                                 src_mask=smask, dst_mask=dmask,
+                                 nn_window=window[0], nn_axis=window[1],
+                                 **kw)
+        T = res.transformation
+        its.append(res.iterations)
+    return res, its
+
+
+def assert_loops_agree(src, dst, nrm, smask, dmask, thresholds, window,
+                       **kw):
+    """The fused kernels against the host loop: the transformation,
+    fitness and RMSE bit for bit, every stage's iterations equal, and a
+    second run the same. Returns (fused result, host iterations)."""
+    from otslam_tpu_torch.kernels.icp import icp_plane_annealed
+    want, its = host_loop(src, dst, nrm, smask, dmask, thresholds, window,
+                          **kw)
+
+    def fused():
+        before = COUNTS["icp.iterations"]
+        res = icp_plane_annealed(src, dst, nrm, thresholds, src_mask=smask,
+                                 dst_mask=dmask, nn_window=window[0],
+                                 nn_axis=window[1], **kw)
+        return ([t.clone() for t in res[:3]],
+                COUNTS["icp.iterations"] - before, res.iterations)
+    got, total, last = fused()
+    again, _, _ = fused()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for a, b in zip(got, want[:3]):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert (total, last) == (sum(its), its[-1])
+    return got, its
+
+
+@pytest.fixture(scope="module")
+def box_on_card(dev):
+    src, dst, nrm, smask = box_clouds()
+    return (torch.as_tensor(src, device=dev), torch.as_tensor(dst, device=dev),
+            torch.as_tensor(nrm, device=dev),
+            torch.as_tensor(smask, device=dev))
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_icp_fused_matches_host_loop(dev, box_on_card, windowed):
+    """The box clouds at the pair thresholds, through K4's windows (sized
+    as the refiner sizes them) or over the whole destination."""
+    src, dst, nrm, smask = box_on_card
+    window = (nn.auto_nn_window(src.cpu().numpy(), dst.cpu().numpy(),
+                                max(BOX_THRESHOLDS))
+              if windowed else covering(dst))
+    if windowed:
+        assert window[0] * nn.DST_CHUNK < dst.shape[0]
+    assert_loops_agree(src, dst, nrm, smask, None, BOX_THRESHOLDS, window,
+                       max_iterations=15)
+
+
+def test_icp_fused_converges_early(dev, box_on_card):
+    """A pair whose stages converge within a few of their 30 iterations."""
+    src, dst, nrm, smask = box_on_card
+    _, its = assert_loops_agree(src, dst, nrm, smask, None, BOX_THRESHOLDS,
+                                covering(dst), max_iterations=30)
+    assert max(its) < 30
+
+
+def test_icp_fused_runs_every_iteration(dev, box_on_card):
+    """Criteria that never stop the loop: each stage runs all 15."""
+    src, dst, nrm, smask = box_on_card
+    _, its = assert_loops_agree(src, dst, nrm, smask, None, BOX_THRESHOLDS,
+                                covering(dst), max_iterations=15,
+                                relative_fitness=-1.0, relative_rmse=-1.0)
+    assert its == [15, 15, 15]
+
+
+def test_icp_fused_collapse_keeps_the_best_rmse_pose(dev):
+    """Only 3 % of the source on the box, the rest 1 m away: the fitness
+    ends below 0.05 and the iterate of least RMSE is returned."""
+    src, dst, nrm, smask = box_clouds()
+    src[len(src) * 3 // 100:, 0] += 1.0
+    src, dst, nrm, smask = (torch.as_tensor(a, device=dev)
+                            for a in (src, dst, nrm, smask))
+    got, _ = assert_loops_agree(src, dst, nrm, smask, None, BOX_THRESHOLDS,
+                                covering(dst), max_iterations=15)
+    assert 0 < float(got[1]) < 0.05
+
+
+def test_icp_fused_without_inliers(dev):
+    """The source 1 m away: no inliers at any stage, the identity back."""
+    src, dst, nrm, smask = (torch.as_tensor(a, device=dev) for a in
+                            box_clouds(shift=(1.0, 0.0, 0.0)))
+    got, its = assert_loops_agree(src, dst, nrm, smask, None,
+                                  BOX_THRESHOLDS, covering(dst),
+                                  max_iterations=15)
+    assert float(got[1]) == 0.0 and its == [2, 2, 2]
+    assert torch.equal(got[0], torch.eye(4, device=dev))
+
+
+@pytest.fixture(scope="module")
+def refine_capture(dev):
+    """The recon.captures.refine cell's chair_1 at its VGA size and
+    settings, its poses moved by the cell's planar localization error."""
+    import json
+    from pathlib import Path
+
+    from benchmark.drivers.recon_refine import noisy, program_config
+    from benchmark.inputs.captures import make_captures
+    from otslam_tpu_torch.pipeline.dataset import FrameBatch
+    bench = Path(__file__).resolve().parents[1] / "benchmark"
+    cfg = json.loads(
+        (bench / "configs/object_recon.refine_icp.json").read_text())
+    traffic = json.loads((bench / "traffic/captures.refine.json").read_text())
+    traffic["objects"] = ["chair_1"]
+    seed = 2 ** 31 + 19
+    truth = make_captures(traffic, cfg["camera"], seed, dev)[0]["chair_1"]
+    cap = noisy(truth, np.random.default_rng([seed, 1]),
+                traffic["pose_noise_xy_m"], traffic["pose_noise_yaw_rad"])
+    pcfg = program_config(cfg)
+    batch = FrameBatch(cap.depths, cap.colors, cap.extrinsics, cap.poses,
+                       [f"chair_1_{i + 1}.jpg"
+                        for i in range(len(cap.depths))])
+    return batch, PinholeIntrinsics.from_config(pcfg.camera), pcfg
+
+
+def test_icp_fused_on_a_capture_pair(dev, refine_capture):
+    """Frames 1 onto 0 of a full_room capture, prepared as
+    refine_trajectory prepares a pair, through refine._annealed_icp (the
+    fused kernels) against refine._annealed_icp_plain's host loop."""
+    from otslam_tpu_torch.core.se3 import invert_se3
+    from otslam_tpu_torch.pipeline import refine
+    batch, intr, _ = refine_capture
+    depths = torch.as_tensor(batch.depths[:2], device=dev)
+    pp, pn, pv = refine._frame_points_normals(depths[0], intr)
+    cp, _, cv = refine._frame_points_normals(depths[1], intr)
+    window = refine._pair_nn_window(cp, pp, max(THRESHOLDS))
+    ext = np.asarray(batch.extrinsics, np.float64)
+    src = refine._moved(cp, ext[0] @ invert_se3(ext[1]))
+    assert_loops_agree(src, pp, pn, cv, pv, THRESHOLDS, window,
+                       max_iterations=refine.PAIR_ICP_ITERATIONS)
+    plain = refine._annealed_icp_plain(src, pp, pn, pv, cv, THRESHOLDS,
+                                       window)
+    res = refine._annealed_icp(src, pp, pn, pv, cv, THRESHOLDS, window)
+    for a, b in zip(res, plain):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def test_refined_object_waits_are_counted(dev, refine_capture):
+    """One untraced refined object: `syncs` equals the synchronizing calls
+    set_sync_debug_mode reports, and inside each pair's ICP the one wait
+    is the loop's condition, once an evaluation."""
+    import warnings
+
+    from otslam_tpu_torch.pipeline import reconstruct as rc
+    from otslam_tpu_torch.pipeline import refine
+    batch, intr, pcfg = refine_capture
+    orig = refine._annealed_icp
+    inside = []
+
+    def counted(*a, **k):
+        s0, i0 = COUNTS["syncs"], COUNTS["icp.iterations"]
+        res = orig(*a, **k)
+        inside.append((COUNTS["syncs"] - s0, COUNTS["icp.iterations"] - i0))
+        return res
+
+    def refined():
+        return rc.reconstruct_frames(batch, intr, pcfg, auto_origin=True,
+                                     refine="icp", device=dev)
+    refined()                                        # warms up
+    torch.cuda.synchronize()
+    before = dict(COUNTS)
+    refine._annealed_icp = counted
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        del seen[:]             # the mode's own notice, the first time on
+        try:
+            res = refined()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            refine._annealed_icp = orig
+    waits = [w for w in seen if "synchroniz" in str(w.message)]
+    syncs = COUNTS["syncs"] - before["syncs"]
+    assert syncs == len(waits), [f"{w.filename}:{w.lineno}" for w in waits]
+    assert len(inside) == len(batch.depths) - 1
+    stages = len(THRESHOLDS)
+    assert all(n == its + stages for n, its in inside), inside
+    assert len(res.points) > 100

@@ -29,6 +29,7 @@ from otslam_tpu.core import io as jio
 from otslam_tpu.eval.scenarios import sample_object_surfaces
 from otslam_tpu.sim.world import cardboard_room
 from otslam_tpu_torch.core import io as tio
+from otslam_tpu_torch.kernels._build import SIGNATURES
 from test_torch_map_cli import PORT
 from test_torch_package import report, run_py
 from torch_parity import SMALL_CAM
@@ -78,7 +79,7 @@ def headline_json(stdout: str) -> dict:
 def test_port_commands_stay_off_jax_and_the_kernels(runs):
     r = report(type("P", (), {"stdout": runs[1], "stderr": ""}))
     assert not r["jax"] and not r["otslam_tpu"]
-    assert r["launches"] == [0] * 7
+    assert r["launches"] == [0] * len(SIGNATURES)
 
 
 def test_capture_saves_the_jax_frame_and_pose(runs):

@@ -149,12 +149,12 @@ KERNEL_SOURCES = {f"otslam_tpu_torch/csrc/{p.name}"
 
 
 def test_wheel_carries_every_kernel_and_host_source(tmp_path):
-    """A wheel built offline from the tree (MANIFEST.in) holds the six CUDA
-    sources and the two host C++ sources that the installed package
+    """A wheel built offline from the tree (MANIFEST.in) holds the seven
+    CUDA sources and the two host C++ sources that the installed package
     builds from."""
     import shutil
     import zipfile
-    assert len(KERNEL_SOURCES) == 8
+    assert len(KERNEL_SOURCES) == 9
     src = tmp_path / "src"
     src.mkdir()
     for name in ("pyproject.toml", "MANIFEST.in", "README.md"):
@@ -286,7 +286,8 @@ for i in range(8):
     assert rec.returncode == 0, rec.stderr
     assert "Object_0: " in rec.stdout and "from 8 frames" in rec.stdout
     r = report(rec)
-    assert not r["jax"] and not r["otslam_tpu"] and r["launches"] == [0] * 7
+    assert not r["jax"] and not r["otslam_tpu"]
+    assert r["launches"] == [0] * len(_build.SIGNATURES)
     ply = root / "3d_reconst" / "Object_0.ply"
     ev = run_py(CLI, "eval", "--map", str(ply), "--gt-samples", "5000",
                 "--device", "cpu")
@@ -294,7 +295,7 @@ for i in range(8):
     metrics = json.loads(ev.stdout.splitlines()[0])
     assert 0 < metrics["accuracy_cm"] < 2.0
     r = report(ev)
-    assert not r["jax"] and r["launches"] == [0] * 7
+    assert not r["jax"] and r["launches"] == [0] * len(_build.SIGNATURES)
 
 
 def test_unported_options_raise(monkeypatch):

@@ -351,3 +351,64 @@ def test_point_to_point_syncs_are_the_waits_pytorch_reports(dev):
     waits = [w for w in seen if "synchroniz" in str(w.message)]
     assert res.iterations > 2
     assert COUNTS["syncs"] - before == len(waits)
+
+
+def capture_pair(name, seed):
+    """Frames 1 onto 0 of a tiny capture, prepared as refine_trajectory
+    prepares a pair: (source moved by the prior, frame 0's points,
+    normals and validity, frame 1's validity, the window)."""
+    cap, _ = capture(name, seed)
+    _, intr = program()
+    depths = torch.as_tensor(cap.depths)
+    pp, pn, pv = refine._frame_points_normals(depths[0], intr)
+    cp, _, cv = refine._frame_points_normals(depths[1], intr)
+    window = refine._pair_nn_window(cp, pp, max(THRESHOLDS))
+    ext = cap.extrinsics.astype(np.float64)
+    src = refine._moved(cp, ext[0] @ np.linalg.inv(ext[1]))
+    return src, pp, pn, pv, cv, window
+
+
+THRESHOLDS = tuple(CONFIG["refine_settings"]["thresholds_m"])
+
+
+def test_plain_annealed_icp_is_three_chained_calls():
+    """On the CPU, _annealed_icp is its plain version, and that is
+    icp_point_to_plane at each threshold from the last stage's
+    transformation, bit for bit."""
+    src, pp, pn, pv, cv, window = capture_pair("chair_1", 34)
+    T = torch.eye(4)
+    for thr in THRESHOLDS:
+        want = icp_mod.icp_point_to_plane(
+            src, pp, pn, threshold=thr, init=T, src_mask=cv, dst_mask=pv,
+            max_iterations=refine.PAIR_ICP_ITERATIONS, nn_window=window[0],
+            nn_axis=window[1])
+        T = want.transformation
+    for got in (refine._annealed_icp_plain(src, pp, pn, pv, cv, THRESHOLDS,
+                                           window),
+                refine._annealed_icp(src, pp, pn, pv, cv, THRESHOLDS,
+                                     window)):
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b)
+        assert got.iterations == want.iterations
+    assert float(want.fitness) > 0
+
+
+
+def test_pair_result_is_one_copy():
+    """One copy brings a pair's pose (float64), fitness and RMSE home with
+    the window tally's rows, which it counts."""
+    T = torch.eye(4)
+    T[0, 3] = 0.25
+    res = icp_mod.ICPResult(T, torch.tensor(0.5), torch.tensor(0.01), 3)
+    tally = nn.WindowTally()
+    tally.ranges.append((torch.tensor([0, 1], dtype=torch.int32),
+                         torch.tensor([2, 4], dtype=torch.int32)))
+    before = dict(COUNTS)
+    dT, fit, rmse = refine._pair_result(res, tally)
+    assert dT.dtype == np.float64 and dT[0, 3] == 0.25
+    assert fit == 0.5 and rmse == float(torch.tensor(0.01))
+    assert grew(before, "nn.window_pairs") == 5 * 1024 * 256
+    assert grew(before, "nn.window_scans") == 1
+    assert grew(before, "icp.iterations") == 0
+    dT, _, _ = refine._pair_result(res, nn.WindowTally())
+    assert grew(before, "nn.window_scans") == 1
