@@ -36,7 +36,8 @@ import torch
 from otslam_tpu_torch.device import to_device
 from otslam_tpu_torch.kernels import _build
 from otslam_tpu_torch.kernels.nn import (DST_CHUNK, SRC_TILE, nn_distance,
-                                         nn_distance_radius, nn_min_windowed)
+                                         nn_distance_radius, nn_min_windowed,
+                                         window_destination)
 from otslam_tpu_torch.kernels.pose_graph import _homogeneous
 from otslam_tpu_torch.kernels.tsdf import recip32
 from otslam_tpu_torch.utils.profiling import count, waited
@@ -444,16 +445,10 @@ def icp_plane_annealed(src: torch.Tensor, dst: torch.Tensor,
     od = torch.argsort(dst[:, nn_axis], stable=True)
     dst = dst.to(torch.float32)[od]
     dmask, dst_normals = dmask[od], dst_normals.to(torch.float32)[od]
-    # the destination padded to whole chunks and its chunk bounds, as
-    # nn.window_ranges makes them each iteration
-    mpad = -(-m // DST_CHUNK) * DST_CHUNK
-    dstp = torch.cat([dst, dst[-1:].expand(mpad - m, 3)])
-    dmaskp = torch.nn.functional.pad(dmask, (0, mpad - m)).contiguous()
+    # the destination's chunks, as nn.window_ranges makes them each iteration
+    dstp, dmaskp, chunk_lo, chunk_hi, sorted_ok = window_destination(
+        dst, dmask, nn_axis)
     nrm = dst_normals.contiguous()
-    dz = dstp[:, nn_axis]
-    chunk_lo = dz[::DST_CHUNK].contiguous()
-    chunk_hi = dz[DST_CHUNK - 1::DST_CHUNK].contiguous()
-    sorted_ok = torch.all(dz[1:] >= dz[:-1])
     full = int(nn_window * DST_CHUNK >= m)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -490,7 +485,7 @@ def icp_plane_annealed(src: torch.Tensor, dst: torch.Tensor,
             _build.check(lib.otslam_icp_prep(
                 src_k.data_ptr(), T.data_ptr(), chunk_lo.data_ptr(),
                 chunk_hi.data_ptr(), sorted_ok.data_ptr(), n,
-                mpad // DST_CHUNK, nn_axis, thr, full, p.data_ptr(),
+                chunk_lo.shape[0], nn_axis, thr, full, p.data_ptr(),
                 c0.data_ptr(), c1.data_ptr(), stream), "otslam_icp_prep")
             best_d, best_i = nn_min_windowed(p, dstp, dmaskp, c0, c1)
             _build.check(lib.otslam_icp_terms(

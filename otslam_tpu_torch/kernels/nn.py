@@ -281,6 +281,20 @@ def auto_nn_window(src, dst, radius, axis: int | None = None,
     return min(need, nchunks), axis
 
 
+def window_destination(dst: torch.Tensor, dst_mask, axis: int):
+    """The destination half of window_ranges: (dstp, dmaskp, chunk_lo,
+    chunk_hi, sorted_ok), each chunk's first and last coordinate on `axis`
+    and whether dst is sorted ascending on it, on dst's device."""
+    m, dc = dst.shape[0], DST_CHUNK
+    mpad = -(-m // dc) * dc
+    dstp = torch.cat([dst, dst[-1:].expand(mpad - m, 3)])
+    dmaskp = torch.nn.functional.pad(dst_mask, (0, mpad - m))
+    dz = dstp[:, axis]
+    chunk_lo = dz[::dc].contiguous()          # first row of each chunk
+    chunk_hi = dz[dc - 1::dc].contiguous()    # last row of each chunk
+    return dstp, dmaskp, chunk_lo, chunk_hi, torch.all(dz[1:] >= dz[:-1])
+
+
 def window_ranges(src: torch.Tensor, dst: torch.Tensor, dst_mask,
                   radius: float, axis: int):
     """Operands of the windowed scan, all on the clouds' device with no
@@ -290,24 +304,18 @@ def window_ranges(src: torch.Tensor, dst: torch.Tensor, dst_mask,
     can hold a neighbour within `radius` of each source tile (the source
     is padded with its last row likewise). When dst is not sorted
     ascending on `axis`, every tile gets the whole range [0, Mp/1024)."""
-    n, m = src.shape[0], dst.shape[0]
-    ts, dc = SRC_TILE, DST_CHUNK
-    mpad = -(-m // dc) * dc
+    n, ts = src.shape[0], SRC_TILE
+    dstp, dmaskp, chunk_lo, chunk_hi, sorted_ok = window_destination(
+        dst, dst_mask, axis)
     npad = -(-n // ts) * ts
-    dstp = torch.cat([dst, dst[-1:].expand(mpad - m, 3)])
-    dmaskp = torch.nn.functional.pad(dst_mask, (0, mpad - m))
     srcp = torch.cat([src, src[-1:].expand(npad - n, 3)])
     sz = srcp[:, axis].reshape(npad // ts, ts)
     tile_lo = sz.amin(dim=1) - radius
     tile_hi = sz.amax(dim=1) + radius
-    dz = dstp[:, axis]
-    chunk_lo = dz[::dc].contiguous()          # first row of each chunk
-    chunk_hi = dz[dc - 1::dc].contiguous()    # last row of each chunk
     c0 = torch.searchsorted(chunk_hi, tile_lo, side="left")
     c1 = torch.searchsorted(chunk_lo, tile_hi, side="right")
-    sorted_ok = torch.all(dz[1:] >= dz[:-1])
     c0 = torch.where(sorted_ok, c0, 0).to(torch.int32)
-    c1 = torch.where(sorted_ok, c1, mpad // dc).to(torch.int32)
+    c1 = torch.where(sorted_ok, c1, chunk_lo.shape[0]).to(torch.int32)
     return dstp, dmaskp, c0, c1
 
 

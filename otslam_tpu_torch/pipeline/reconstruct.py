@@ -21,7 +21,8 @@ counter changes (utils/profiling.py) under ``timings["trace"]``:
 
     recon.object
     ├ recon.auto_volume
-    ├ recon.refine          (refine != "none")
+    ├ recon.refine          (refine != "none"; its refine.upload copies the
+    │                         frames, and fuse.upload then only the poses)
     ├ recon.fuse
     │  ├ fuse.upload        the host frames to the card
     │  ├ fuse.volume        the block volume's allocation and zero fill
@@ -63,14 +64,14 @@ from otslam_tpu_torch.kernels.tsdf_block import (
     integrate_frames_sparse, make_block_volume)
 from otslam_tpu_torch.pipeline.dataset import CaptureDataset, FrameBatch
 from otslam_tpu_torch.pipeline.refine import (
-    refine_trajectory, refine_trajectory_f2m, refine_trajectory_pgo)
+    _icp_poses, _pgo_poses, refine_trajectory_f2m)
 from otslam_tpu_torch.utils.profiling import (
-    COUNTS, count, drain, recording, span, waited)
+    COUNTS, count, drain, recording, span)
 
 BACKENDS = ("pallas", "sparse", "dense")
 OUTPUTS = ("cloud", "mesh")
-REFINERS = {"icp": refine_trajectory, "f2m": refine_trajectory_f2m,
-            "pgo": refine_trajectory_pgo}
+REFINERS = {"icp": _icp_poses, "f2m": refine_trajectory_f2m,
+            "pgo": _pgo_poses}
 STAGES = ("auto_volume", "refine", "fuse", "extract")
 
 
@@ -246,8 +247,7 @@ def extract_filtered_cloud(vol, cfg: ReconstructionConfig,
     pts, cols, mask = out[:3]
     normals = out[3] if with_normals else None
     with span("extract.sample"):
-        waited(mask)
-        raw_count = int(mask.sum())
+        raw_count = pts.shape[0]        # the mask is all ones
         gen = torch.Generator(device=pts.device).manual_seed(seed)
         s_pts, s_cols, s_nrm = resample_points(
             pts, mask, cfg.surface_samples, colors=cols, normals=normals,
@@ -313,17 +313,19 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
                         cfg.tsdf, origin=auto_volume_origin(batch, intr,
                                                             cfg)))
             drain(dev)
+        depths, colors = batch.depths, batch.colors
         if refine != "none":
             with span("recon.refine"):
-                refined = REFINERS[refine](batch.depths, batch.colors,
-                                           batch.extrinsics, intr, cfg,
-                                           device=dev)
+                with span("refine.upload"):     # fuse_frames reuses them
+                    depths, colors = to_f32(depths, dev), to_f32(colors, dev)
+                refined = REFINERS[refine](depths, colors, batch.extrinsics,
+                                           intr, cfg, device=dev)
                 batch = dataclasses.replace(batch,
                                             extrinsics=refined.extrinsics)
                 drain(dev)
         with span("recon.fuse"):
-            vol = fuse_frames(batch.depths, batch.colors, batch.extrinsics,
-                              intr, cfg, backend, densify=False, device=dev)
+            vol = fuse_frames(depths, colors, batch.extrinsics, intr, cfg,
+                              backend, densify=False, device=dev)
             drain(dev)
         with span("recon.extract"):
             if output == "mesh":

@@ -9,9 +9,12 @@ Capture poses come from odometry/TF and drift. Three refiners correct them:
 * ``refine_trajectory_pgo``  — a tracked chain plus verified loop-closure
   edges, jointly optimized (kernels/pose_graph.py).
 
-The frames are uploaded to `device` once and sliced there; the pose chain
-stays in host float64, as in the JAX package, with one small host fetch
-per registered pair or tracked frame. Every fusion passes `max_active` to
+The ICP and pose-graph refiners estimate poses in `_icp_poses` and
+`_pgo_poses` (reconstruct.REFINERS), from frames given as arrays or as
+tensors on `device`; their public functions upload the frames once, call
+them and fuse at the poses. The pose chain stays in host float64, as in the
+JAX package, with one small host fetch per registered pair or tracked
+frame. Every fusion passes `max_active` to
 the block-sparse path (the JAX package's fixed 2048-block capacity per
 frame, which the port keeps on purpose: frame-to-model tracking runs
 against the model fused under that cap).
@@ -26,15 +29,14 @@ counters ``icp.pairs`` (frame pairs registered by ICP) and
 ``refine.fallbacks`` (corrections the trust region rejected); the rows of
 each pair's windowed scans, tallied on the device, come home in the pose
 fetch's copy and go to ``nn.window_pairs`` and ``nn.window_scans``
-(kernels/nn.py). Under a recorder,
-``refine_trajectory`` keeps the spans
+(kernels/nn.py). Under a recorder, the ICP refiner keeps the spans
 
-    refine.upload   the frames to the device
+    refine.upload   the frames to the device (or reconstruct_frames' upload)
     refine.frames   points and normals from each frame's depth gradients
     refine.window   the host fetch of a pair's clouds and auto_nn_window
     refine.icp      one pair's annealed ICP
     refine.chain    the pose fetch, the trust region and the host compose
-    refine.fuse     the fusion of the frames at the refined poses
+    refine.fuse     the public functions' fusion at the refined poses
 """
 
 from __future__ import annotations
@@ -60,12 +62,17 @@ from otslam_tpu_torch.utils.profiling import count, span, waited
 
 
 PAIR_ICP_ITERATIONS = 15    # a frame pair's ICP iterations at each threshold
+PAIR_THRESHOLDS = (0.1, 0.05, 0.02)   # a pair's annealed ICP thresholds (m)
+PAIR_TRUST = 0.15       # the ICP chain's trust region (m, and rad)
+STRIDE, MAX_ACTIVE = 4, 2048    # the points' pixel stride; a frame's blocks
+LOOP_MIN_GAP, LOOP_RADIUS, LOOP_MAX_PAIRS = 8, 0.8, 6   # loop closures
+PGO_ITERATIONS, PGO_FRONT_END = 12, "f2m"               # the pose graph
 
 
 @dataclass
 class RefineResult:
     extrinsics: np.ndarray               # (N, 4, 4) corrected world->camera
-    volume: object                       # final BlockTSDFVolume
+    volume: object                       # BlockTSDFVolume, None: poses only
     fitness: List[float] = field(default_factory=list)
     rmse: List[float] = field(default_factory=list)
 
@@ -213,10 +220,26 @@ def _rotation_angle(R: np.ndarray):
     return np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1))
 
 
+def _refined(estimate, depths, colors, extrinsics, intr, cfg, max_active,
+             device, *settings) -> RefineResult:
+    """The public refiners: the frames uploaded to `device`, `estimate`'s
+    poses from them, and the frames fused at those poses (max_active)."""
+    dev = resolve_device(device)
+    with span("refine.upload"):
+        depths, colors = to_f32(depths, dev), to_f32(colors, dev)
+    res = estimate(depths, colors, extrinsics, intr, cfg, *settings, device=dev)
+    with span("refine.fuse"):
+        res.volume = integrate_frames_sparse(
+            make_block_volume(cfg.tsdf, dev), depths, colors,
+            to_f32(res.extrinsics, dev), intr, max_active=max_active)
+    return res
+
+
 def refine_trajectory(depths, colors, extrinsics, intr: PinholeIntrinsics,
-                      cfg: ReconstructionConfig, max_active: int = 2048,
-                      thresholds=(0.1, 0.05, 0.02), stride: int = 4,
-                      trust_translation: float = 0.15, trust_rot: float = 0.15,
+                      cfg: ReconstructionConfig, max_active: int = MAX_ACTIVE,
+                      thresholds=PAIR_THRESHOLDS, stride: int = STRIDE,
+                      trust_translation: float = PAIR_TRUST,
+                      trust_rot: float = PAIR_TRUST,
                       device="cuda") -> RefineResult:
     """Frame-to-frame point-to-plane tracking, then fusion with the
     corrected poses.
@@ -229,9 +252,17 @@ def refine_trajectory(depths, colors, extrinsics, intr: PinholeIntrinsics,
     depths (N,H,W) f32 meters and colors (N,H,W,3) [0,255] as arrays or
     tensors, extrinsics (N,4,4) world->camera priors as a host array; the
     work runs on `device`."""
-    dev = resolve_device(device)
-    with span("refine.upload"):
-        depths_t, colors_t = to_f32(depths, dev), to_f32(colors, dev)
+    return _refined(_icp_poses, depths, colors, extrinsics, intr, cfg,
+                    max_active, device, thresholds, stride,
+                    trust_translation, trust_rot)
+
+
+def _icp_poses(depths, colors, extrinsics, intr, cfg,
+               thresholds=PAIR_THRESHOLDS, stride=STRIDE,
+               trust_translation=PAIR_TRUST, trust_rot=PAIR_TRUST,
+               device="cuda") -> RefineResult:
+    """refine_trajectory's poses, no volume; colors and cfg go unused."""
+    depths_t = to_f32(depths, resolve_device(device))
     ext = np.asarray(extrinsics, np.float64)
     n = depths_t.shape[0]
     out_ext = [ext[0]]
@@ -267,13 +298,8 @@ def refine_trajectory(depths, colors, extrinsics, intr: PinholeIntrinsics,
             rmses.append(rmse)
         prev_pts, prev_nrm, prev_valid = cur_pts, cur_nrm, cur_valid
 
-    ext_out = np.stack(out_ext).astype(np.float32)
-    with span("refine.fuse"):
-        vol = integrate_frames_sparse(make_block_volume(cfg.tsdf, dev),
-                                      depths_t, colors_t,
-                                      to_f32(ext_out, dev), intr,
-                                      max_active=max_active)
-    return RefineResult(ext_out, vol, fitness, rmses)
+    return RefineResult(np.stack(out_ext).astype(np.float32), None, fitness,
+                        rmses)
 
 
 def refine_trajectory_f2m(depths, colors, extrinsics, intr: PinholeIntrinsics,
@@ -324,7 +350,7 @@ def refine_trajectory_f2m(depths, colors, extrinsics, intr: PinholeIntrinsics,
 
 
 def _register_pair(pts_i, nrm_i, valid_i, pts_j, valid_j, prior_rel,
-                   thresholds=(0.1, 0.05, 0.02)):
+                   thresholds=PAIR_THRESHOLDS):
     """Annealed point-to-plane registration of frame j onto frame i.
 
     pts/nrm are camera-frame tensors from _frame_points_normals; prior_rel
@@ -341,8 +367,9 @@ def _register_pair(pts_i, nrm_i, valid_i, pts_j, valid_j, prior_rel,
 
 
 def detect_loop_closures(depths, extrinsics, intr: PinholeIntrinsics,
-                         stride: int = 4, min_gap: int = 8,
-                         radius: float = 0.8, max_pairs: int = 6,
+                         stride: int = STRIDE, min_gap: int = LOOP_MIN_GAP,
+                         radius: float = LOOP_RADIUS,
+                         max_pairs: int = LOOP_MAX_PAIRS,
                          min_fitness: float = 0.5, device="cuda"):
     """Propose + verify loop-closure edges over a trajectory.
 
@@ -390,10 +417,13 @@ def detect_loop_closures(depths, extrinsics, intr: PinholeIntrinsics,
 
 
 def refine_trajectory_pgo(depths, colors, extrinsics, intr: PinholeIntrinsics,
-                          cfg: ReconstructionConfig, max_active: int = 2048,
-                          stride: int = 4, min_gap: int = 8,
-                          loop_radius: float = 0.8, max_loop_pairs: int = 6,
-                          num_iters: int = 12, front_end: str = "f2m",
+                          cfg: ReconstructionConfig,
+                          max_active: int = MAX_ACTIVE, stride: int = STRIDE,
+                          min_gap: int = LOOP_MIN_GAP,
+                          loop_radius: float = LOOP_RADIUS,
+                          max_loop_pairs: int = LOOP_MAX_PAIRS,
+                          num_iters: int = PGO_ITERATIONS,
+                          front_end: str = PGO_FRONT_END,
                           device="cuda") -> RefineResult:
     """Pose-graph refinement: a tracked odometry chain plus loop-closure
     edges, jointly optimized with Gauss-Newton, then fused.
@@ -401,6 +431,16 @@ def refine_trajectory_pgo(depths, colors, extrinsics, intr: PinholeIntrinsics,
     front_end selects the chain tracker: "f2m" (direct TSDF tracking, the
     default) or "icp" (frame-to-frame point-to-plane pairs). Chain edges
     weigh 1, loop edges 2."""
+    return _refined(_pgo_poses, depths, colors, extrinsics, intr, cfg,
+                    max_active, device, max_active, stride, min_gap,
+                    loop_radius, max_loop_pairs, num_iters, front_end)
+
+
+def _pgo_poses(depths, colors, extrinsics, intr, cfg, max_active=MAX_ACTIVE,
+               stride=STRIDE, min_gap=LOOP_MIN_GAP, loop_radius=LOOP_RADIUS,
+               max_loop_pairs=LOOP_MAX_PAIRS, num_iters=PGO_ITERATIONS,
+               front_end=PGO_FRONT_END, device="cuda") -> RefineResult:
+    """refine_trajectory_pgo's poses, no volume."""
     dev = resolve_device(device)
     depths_t, colors_t = to_f32(depths, dev), to_f32(colors, dev)
     n = depths_t.shape[0]
@@ -462,10 +502,7 @@ def refine_trajectory_pgo(depths, colors, extrinsics, intr: PinholeIntrinsics,
         num_iters=num_iters)
     T_opt = res.poses.cpu().numpy().astype(np.float64)
     ext_out = np.stack([invert_se3(t) for t in T_opt]).astype(np.float32)
-    vol = integrate_frames_sparse(make_block_volume(cfg.tsdf, dev), depths_t,
-                                  colors_t, to_f32(ext_out, dev), intr,
-                                  max_active=max_active)
-    return RefineResult(ext_out, vol, fitness, rmses)
+    return RefineResult(ext_out, None, fitness, rmses)
 
 
 def trajectory_error(ext_est, ext_gt):

@@ -36,7 +36,7 @@ from otslam_tpu_torch.kernels import nn  # noqa: E402
 from otslam_tpu_torch.pipeline import reconstruct as rc  # noqa: E402
 from otslam_tpu_torch.pipeline import refine  # noqa: E402
 from otslam_tpu_torch.pipeline.dataset import FrameBatch  # noqa: E402
-from otslam_tpu_torch.utils.profiling import COUNTS  # noqa: E402
+from otslam_tpu_torch.utils.profiling import COUNTS, recording  # noqa: E402
 
 # thousands of small torch ops (the ICP loops) while other files fill the
 # cores of a parallel run: one intra-op thread, as tests/torch_parity.py
@@ -55,7 +55,7 @@ TINY["surface_samples"] = 2000
 CASES = [("cone_blue", 21), ("chair_1", 22), ("cardboard_box", 2**33 + 3),
          ("table_marble", 24)]
 SPANS = {"refine.upload", "refine.frames", "refine.window", "refine.icp",
-         "refine.chain", "refine.fuse"}
+         "refine.chain"}
 
 
 def capture(name, seed, device="cpu", cfg=TINY):
@@ -256,16 +256,53 @@ def test_refine_spans_and_results_unchanged_by_tracing():
     np.testing.assert_array_equal(plain.points, traced.points)
     spans = timings["trace"]["spans"]
     parents = {s[0]: s[1] for s in spans}
-    assert SPANS <= set(parents)
+    assert SPANS <= set(parents) and "refine.fuse" not in parents
     assert all(parents[n] == "recon.refine" for n in SPANS)
     n = len(cap.depths)
     per = {name: sum(s[0] == name for s in spans) for name in SPANS}
     assert per == {"refine.upload": 1, "refine.frames": n,
                    "refine.window": n - 1, "refine.icp": n - 1,
-                   "refine.chain": n - 1, "refine.fuse": 1}
+                   "refine.chain": n - 1}
     counts = timings["trace"]["counts"]
     assert counts["icp.pairs"] == n - 1 and counts["icp.iterations"] > 0
     assert "refine" in timings
+
+
+PUBLIC = {"icp": refine.refine_trajectory, "pgo": refine.refine_trajectory_pgo}
+
+
+@pytest.mark.parametrize("which", list(PUBLIC))
+def test_a_refined_object_is_fused_once_at_the_public_refiners_poses(which):
+    """reconstruct_frames(refine=...) fuses the frames once (one K1 span
+    under recon.fuse, and under recon.refine only the f2m front end's
+    fusion of each frame as pgo tracks it), at the poses the public refiner returns with its
+    own upload and fusion, into the cloud an unrefined call gives from a
+    batch carrying those poses. The volume is sized once, from the priors:
+    auto_origin would size the second call's from the refined poses."""
+    cap, _ = capture("chair_1", 35)
+    pcfg, intr = program()
+    pcfg = rc.auto_volume_config(batch_of(cap), intr, pcfg)
+    draws = torch.rand(pcfg.surface_samples,
+                       generator=torch.Generator().manual_seed(2))
+    timings = {}
+    got = rc.reconstruct_frames(batch_of(cap), intr, pcfg, refine=which,
+                                device="cpu", draws=draws, timings=timings)
+    k1 = [s[1] for s in timings["trace"]["spans"] if s[0] == "fuse.k1"]
+    tracked = len(cap.depths) if which == "pgo" else 0
+    assert sorted(k1) == ["recon.fuse"] + ["recon.refine"] * tracked
+    with recording() as r:
+        want = PUBLIC[which](cap.depths, cap.colors, cap.extrinsics, intr,
+                             pcfg, device="cpu")
+    names = [s[0] for s in r.spans]
+    assert names.count("refine.upload") == names.count("refine.fuse") == 1
+    assert want.volume is not None
+    np.testing.assert_array_equal(got.extrinsics, want.extrinsics)
+    at = batch_of(cap)
+    at.extrinsics = want.extrinsics
+    none = rc.reconstruct_frames(at, intr, pcfg, device="cpu", draws=draws)
+    for k in ("points", "colors", "normals"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(none, k))
+    assert got.raw_surface_count == none.raw_surface_count
 
 
 @pytest.fixture

@@ -222,6 +222,17 @@ def test_upload_bytes_are_the_frames_float32_bytes(dev, batch, output):
 
 
 @pytest.mark.cuda
+def test_a_refined_object_uploads_its_frames_once(dev, batch):
+    """Past the frames' bytes, a refined object copies to the card only
+    the refiner's poses and scalars, less than one frame's bytes."""
+    timings = {}
+    rc.reconstruct_frames(batch, INTR, CFG, auto_origin=True, refine="icp",
+                          device=dev, timings=timings)
+    extra = timings["trace"]["counts"]["h2d_bytes"] - frame_bytes(batch)
+    assert 0 < extra < frame_bytes(batch) // len(batch.depths)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("output", ["cloud", "mesh"])
 def test_span_starts_are_their_profiler_ranges(dev, batch, output):
     """Each span starts within 0.1 ms of its record_function range in a
