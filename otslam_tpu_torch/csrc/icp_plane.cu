@@ -20,10 +20,16 @@
 // PyTorch makes them, minus torch.linalg.svd's two host waits.
 //
 // What bounds it: the host's calls (tens of microseconds each), not the
-// card. An iteration is 13 calls and one host wait instead of ~95 and
-// three:
+// card. An iteration is 13 calls, which icp.py captures in a CUDA graph
+// once for each key of pair shapes and settings and replays: one launch
+// and one host wait an iteration instead of ~95 calls and three waits.
+// Nothing that changes from one iteration, stage or pair of a key to the
+// next is a launch argument: the iteration, the ranges' slot and the
+// stage's threshold live in the pair's state, and the poses and the
+// pair's destination in the tensors icp.py keeps for the key. The calls:
 //   otslam_icp_prep      p = src R^T + t and each 256-row tile's chunk
-//                        range [c0, c1) (nn.py window_ranges);
+//                        range [c0, c1) (nn.py window_ranges), also kept
+//                        in the evaluation's slot of the pair's ranges;
 //   otslam_nn_window     K4 (csrc/nn.cu, unchanged);
 //   otslam_icp_terms     the exact distance, inliers, d^2, the counts, and
 //                        the step's J, J w and plane residual r;
@@ -31,7 +37,8 @@
 //   sgemv
 //   otslam_icp_eval      fitness, RMSE, the best pose by RMSE, the loop's
 //                        condition (the host reads it: the one wait) and
-//                        the damped system, or the stage's result;
+//                        the damped system, or the stage's result; the
+//                        pose evaluated, for the next step;
 //   getrf, getrsBatched  the 6x6 solve;
 //   otslam_icp_rotation  the step clamped, and I + [w]x;
 //   gesvdjBatched, sgemm the SVD projection U Vh;
@@ -68,10 +75,15 @@ struct PairState {
   float best_fit, best_rmse;
   int nv, nin;           // the running iteration's counts (terms adds)
   int keep;              // the loop's condition at the last evaluation
+  int it;                // the stage's iteration at the next evaluation
+  int slot;              // the pair's evaluations so far: the next's slot
+  float threshold;       // the running stage's (the host writes it)
 };
-static_assert(sizeof(PairState) == 41 * 4, "icp.py STATE_WORDS");
+static_assert(sizeof(PairState) == 44 * 4, "icp.py STATE_WORDS");
 static_assert(offsetof(PairState, fit) == 32 * 4, "icp.py FIT_WORD");
 static_assert(offsetof(PairState, keep) == 40 * 4, "icp.py KEEP_WORD");
+static_assert(offsetof(PairState, threshold) == 43 * 4,
+              "icp.py THRESHOLD_WORD");
 
 // torch.searchsorted(a, v, side="left"): the first i with !(a[i] < v)
 __device__ int search_left(const float* a, int n, float v) {
@@ -107,9 +119,12 @@ icp_prep_kernel(const float* __restrict__ src,          // (n, 3)
                 const float* __restrict__ chunk_lo,     // (nchunks,)
                 const float* __restrict__ chunk_hi,
                 const bool* __restrict__ sorted_ok,     // dst sorted on axis
-                int n, int nchunks, int axis, float radius, int full,
+                int n, int nchunks, int axis,
+                const PairState* __restrict__ st,       // the stage's radius
+                int full,
                 float* __restrict__ p,                  // (n, 3)
-                int* __restrict__ c0, int* __restrict__ c1) {
+                int* __restrict__ c0, int* __restrict__ c1,
+                int* __restrict__ ranges) {   // (slots, 2, tiles) history
   const int b = blockIdx.x, t = threadIdx.x, i = b * kTile + t;
   const float inf = __int_as_float(0x7f800000);
   float lo = inf, hi = -inf;
@@ -139,17 +154,21 @@ icp_prep_kernel(const float* __restrict__ src,          // (n, 3)
   }
   __syncthreads();
   if (t != 0) return;
-  if (full || !*sorted_ok) {
-    c0[b] = 0;
-    c1[b] = nchunks;
-    return;
+  int first = 0, end = nchunks;
+  if (!full && *sorted_ok) {
+    for (int w = 1; w < kWarps; ++w) {
+      lo = fminf(lo, wlo[w]);
+      hi = fmaxf(hi, whi[w]);
+    }
+    const float radius = st->threshold;
+    first = search_left(chunk_hi, nchunks, lo - radius);
+    end = search_right(chunk_lo, nchunks, hi + radius);
   }
-  for (int w = 1; w < kWarps; ++w) {
-    lo = fminf(lo, wlo[w]);
-    hi = fmaxf(hi, whi[w]);
-  }
-  c0[b] = search_left(chunk_hi, nchunks, lo - radius);
-  c1[b] = search_right(chunk_lo, nchunks, hi + radius);
+  c0[b] = first;
+  c1[b] = end;
+  int* const slot = ranges + 2 * (size_t)st->slot * gridDim.x;
+  slot[b] = first;
+  slot[gridDim.x + b] = end;
 }
 
 __global__ void __launch_bounds__(kTile)
@@ -159,13 +178,14 @@ icp_terms_kernel(const float* __restrict__ p,             // (n, 3)
                  const float* __restrict__ nrm,            // (m, 3)
                  const float* __restrict__ best_d,         // K4's (n,)
                  const long long* __restrict__ best_i,
-                 int n, int m, float threshold,
+                 int n, int m,
                  float* __restrict__ J,                    // (n, 6)
                  float* __restrict__ Jw,                   // (n, 6)
                  float* __restrict__ r,                    // (n,)
                  float* __restrict__ dd,                   // (n,)
                  PairState* __restrict__ st) {
   const int t = threadIdx.x, i = blockIdx.x * kTile + t;
+  const float threshold = st->threshold;
   int nv = 0, nin = 0;
   if (i < n) {
     const float px = p[3 * (size_t)i], py = p[3 * (size_t)i + 1],
@@ -223,17 +243,20 @@ icp_terms_kernel(const float* __restrict__ p,             // (n, 3)
 
 // One thread: the metrics of the pose T just evaluated (counts from the
 // terms kernel, sdd = torch.sum of d^2), the best pose, the loop's
-// condition at iteration `it`; while it holds the damped system, Ad
-// column-major and b, for the solve, else the stage's result in the
-// state.
+// condition at the state's iteration; T copied to `cur`, where the next
+// step starts from; while the condition holds the damped system, Ad
+// column-major and b, for the solve, and the next iteration, else the
+// stage's result in the state and the next stage's iteration 0.
 __global__ void icp_eval_kernel(PairState* __restrict__ st,
                                 const float* __restrict__ T,
                                 const float* __restrict__ sdd,
                                 const float* __restrict__ A,   // J_w^T J
                                 const float* __restrict__ g,   // J_w^T r
-                                int it, int max_iterations, float rel_fit,
+                                int max_iterations, float rel_fit,
                                 float rel_rmse, float* __restrict__ Ad,
-                                float* __restrict__ b) {
+                                float* __restrict__ b,
+                                float* __restrict__ cur) {
+  const int it = st->it;
   const int nv = st->nv, nin = st->nin;
   st->nv = st->nin = 0;
   const float fit = (float)nin / (float)max(nv, 1);
@@ -247,14 +270,18 @@ __global__ void icp_eval_kernel(PairState* __restrict__ st,
       it < max_iterations &&
       (it < 2 || fabsf(st->prev_fit - fit) > rel_fit ||
        fabsf(st->prev_rmse - rmse) > rel_rmse);
+  for (int k = 0; k < 16; ++k) cur[k] = T[k];
   st->keep = keep;
+  st->slot += 1;
   if (!keep) {
     const bool use_best = fit < kFallbackFitness;   // collapsed
     for (int k = 0; k < 16; ++k) st->T[k] = use_best ? st->best_T[k] : T[k];
     st->fit = use_best ? st->best_fit : fit;
     st->rmse = use_best ? st->best_rmse : rmse;
+    st->it = 0;
     return;
   }
+  st->it = it + 1;
   st->prev_fit = fit;
   st->prev_rmse = rmse;
   // A + (1e-3 tr(A) / 6 + 1e-9) I, b = -g
@@ -300,42 +327,42 @@ __global__ void icp_dt_kernel(const float* __restrict__ Rn,
 extern "C" int otslam_icp_prep(const void* src, const void* T,
                                const void* chunk_lo, const void* chunk_hi,
                                const void* sorted_ok, int n, int nchunks,
-                               int axis, float radius, int full, void* p,
-                               void* c0, void* c1, void* stream) {
+                               int axis, const void* state, int full,
+                               void* p, void* c0, void* c1, void* ranges,
+                               void* stream) {
   if (n <= 0 || axis < 0 || axis > 2) return (int)cudaErrorInvalidValue;
   icp_prep_kernel<<<(n + kTile - 1) / kTile, kTile, 0,
                     (cudaStream_t)stream>>>(
       (const float*)src, (const float*)T, (const float*)chunk_lo,
       (const float*)chunk_hi, (const bool*)sorted_ok, n, nchunks, axis,
-      radius, full, (float*)p, (int*)c0, (int*)c1);
+      (const PairState*)state, full, (float*)p, (int*)c0, (int*)c1,
+      (int*)ranges);
   return (int)cudaGetLastError();
 }
 
 extern "C" int otslam_icp_terms(const void* p, const void* smask,
                                 const void* dst, const void* nrm,
                                 const void* best_d, const void* best_i, int n,
-                                int m, float threshold, void* J, void* Jw,
-                                void* r, void* dd, void* state,
-                                void* stream) {
+                                int m, void* J, void* Jw, void* r, void* dd,
+                                void* state, void* stream) {
   if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
   icp_terms_kernel<<<(n + kTile - 1) / kTile, kTile, 0,
                      (cudaStream_t)stream>>>(
       (const float*)p, (const bool*)smask, (const float*)dst,
       (const float*)nrm, (const float*)best_d, (const long long*)best_i, n, m,
-      threshold, (float*)J, (float*)Jw, (float*)r, (float*)dd,
-      (PairState*)state);
+      (float*)J, (float*)Jw, (float*)r, (float*)dd, (PairState*)state);
   return (int)cudaGetLastError();
 }
 
 extern "C" int otslam_icp_eval(void* state, const void* T, const void* sdd,
-                               const void* A, const void* g, int it,
+                               const void* A, const void* g,
                                int max_iterations, float rel_fit,
-                               float rel_rmse, void* Ad, void* b,
+                               float rel_rmse, void* Ad, void* b, void* cur,
                                void* stream) {
   icp_eval_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
       (PairState*)state, (const float*)T, (const float*)sdd,
-      (const float*)A, (const float*)g, it, max_iterations, rel_fit, rel_rmse,
-      (float*)Ad, (float*)b);
+      (const float*)A, (const float*)g, max_iterations, rel_fit, rel_rmse,
+      (float*)Ad, (float*)b, (float*)cur);
   return (int)cudaGetLastError();
 }
 

@@ -71,14 +71,14 @@ SIGNATURES = {
                          _I, _I, _I, _P, _P, _P, _P],   # n mp S bd bi parts
                                                         # stream
     "otslam_icp_prep": [_P, _P, _P, _P, _P,             # src T lo hi ok
-                        _I, _I, _I, _F, _I,             # n chunks axis r full
-                        _P, _P, _P, _P],                # p c0 c1 stream
+                        _I, _I, _I, _P, _I,             # n chunks axis st full
+                        _P, _P, _P, _P, _P],            # p c0 c1 ranges stream
     "otslam_icp_terms": [_P, _P, _P, _P, _P, _P,        # p smask dst nrm bd bi
-                         _I, _I, _F,                    # n m threshold
+                         _I, _I,                        # n m
                          _P, _P, _P, _P, _P, _P],       # J Jw r dd state stream
     "otslam_icp_eval": [_P, _P, _P, _P, _P,             # state T sdd A g
-                        _I, _I, _F, _F,                 # it max rel_fit rel_rmse
-                        _P, _P, _P],                    # Ad b stream
+                        _I, _F, _F,                     # max rel_fit rel_rmse
+                        _P, _P, _P, _P],                # Ad b cur stream
     "otslam_icp_rotation": [_P, _P, _P, _P],            # x xs R stream
     "otslam_icp_dt": [_P, _P, _P, _P],                  # Rn xs dT stream
     "otslam_raycast": [_P, _I, _I, _P, _P, _P, _I, _I,  # grid H W cos sin xy B KB

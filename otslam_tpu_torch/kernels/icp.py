@@ -20,9 +20,16 @@ adds its iterations to the process counter ``icp.iterations``
 
 `icp_plane_annealed` is point-to-plane ICP at several thresholds in turn
 (the pose refiner's pairs) on CUDA tensors with csrc/icp_plane.cu's fused
-kernels: ~13 calls and one host wait an iteration instead of the host
-loop's ~95 and three, the loop's condition evaluated on the card, and the
-same results bit for bit.
+kernels, the loop's condition evaluated on the card, and the same results
+bit for bit. The iteration's ~13 calls (the step, then the evaluation of
+its pose) are captured once in a CUDA graph for each key of pair shapes
+and settings, at its first pair's first step, and every iteration of the
+key's pairs replays it: one graph launch and one host wait an iteration,
+where the host loop makes ~95 calls and three waits. Each stage's first
+evaluation, which no step precedes, is queued call by call. The process
+counters ``icp.graph_captures`` and ``icp.graph_replays`` count the
+graphs and their launches; a replay adds to ``launches.<entry point>``
+the launches it makes.
 """
 
 from __future__ import annotations
@@ -36,11 +43,12 @@ import torch
 from otslam_tpu_torch.device import to_device
 from otslam_tpu_torch.kernels import _build
 from otslam_tpu_torch.kernels.nn import (DST_CHUNK, SRC_TILE, nn_distance,
-                                         nn_distance_radius, nn_min_windowed,
-                                         window_destination)
+                                         nn_distance_radius, tally_scans,
+                                         window_destination, window_outputs,
+                                         window_scan)
 from otslam_tpu_torch.kernels.pose_graph import _homogeneous
 from otslam_tpu_torch.kernels.tsdf import recip32
-from otslam_tpu_torch.utils.profiling import count, waited
+from otslam_tpu_torch.utils.profiling import COUNTS, count, waited
 
 
 class ICPResult(NamedTuple):
@@ -260,9 +268,10 @@ def icp_point_to_plane(src: torch.Tensor, dst: torch.Tensor,
 
 # icp_plane_annealed's state on the card: csrc/icp_plane.cu's PairState, in
 # 32-bit words
-STATE_WORDS = 41      # sizeof(PairState) / 4
+STATE_WORDS = 44      # sizeof(PairState) / 4
 FIT_WORD = 32         # fit, then rmse: the last stage's result
 KEEP_WORD = 40        # the loop's condition at the last evaluation
+THRESHOLD_WORD = 43   # the running stage's threshold
 
 # The library calls of the fused loop's step, made as PyTorch makes them on
 # the card for these shapes, so that they give its results bit for bit
@@ -272,10 +281,16 @@ KEEP_WORD = 40        # the loop's condition at the last evaluation
 # torch.linalg.solve_ex of a 6x6 and one right-hand side factors A by
 # cuSOLVER's getrf and solves by cuBLAS's getrsBatched; torch.linalg.svd
 # of a 3x3 calls cuSOLVER's gesvdjBatched with sorted singular values and
-# the f32 epsilon as its tolerance.
+# the f32 epsilon as its tolerance. cuBLAS works in a workspace of the size
+# PyTorch gives its own handles on an sm_90 card (32 MiB), set again at
+# every bind (cublasSetStream resets it): the kernels it picks inside a
+# graph capture are the ones it picks outside, the sgemm's split-K reduce
+# included, and it adds no allocation of its own to a captured graph.
 _OP_N, _OP_T = 0, 1
 _EIG_MODE_VECTOR = 1
 _GESVDJ_TOLERANCE = float(torch.finfo(torch.float32).eps)
+_BLAS_WORKSPACE = 32 << 20
+KEPT_KEYS = 8       # pair keys whose tensors and graph a device keeps
 
 
 class _StepLibrary:
@@ -290,6 +305,12 @@ class _StepLibrary:
         svd()                a (column-major, destroyed) = U S Vh
         rotation()           Rn = U @ Vh
         compose(dT, T, out)  out = dT @ T, all (4, 4)
+
+    `capture(enqueue)` records what `enqueue` queues in a CUDA graph on the
+    library's own side stream: the handles are bound to that stream for
+    the capture and to the current stream after it. `buffers(key, make)`
+    keeps the fused loop's tensors, and their graph, for the newest
+    KEPT_KEYS keys of pair shapes and settings.
     """
 
     def __init__(self, dev: torch.device):
@@ -307,6 +328,7 @@ class _StepLibrary:
         solver.cusolverDnSgetrf_bufferSize.argtypes = [v, i, i, v, i, ip]
         solver.cusolverDnSgetrf.argtypes = [v, i, i, v, i, v, v, v]
         blas.cublasSetStream_v2.argtypes = [v, v]
+        blas.cublasSetWorkspace_v2.argtypes = [v, v, ctypes.c_size_t]
         blas.cublasSgemm_v2.argtypes = [v, i, i, i, i, i, fp, v, i, v, i, fp,
                                         v, i]
         blas.cublasSgemv_v2.argtypes = [v, i, i, i, fp, v, i, v, i, fp, v, i]
@@ -323,6 +345,8 @@ class _StepLibrary:
         self.u, self.v = torch.empty(9, **f32), torch.empty(9, **f32)
         self.Rn = torch.empty((3, 3), **f32)
         self.info = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.workspace = torch.empty(_BLAS_WORKSPACE, dtype=torch.uint8,
+                                     device=dev)
         self.getrs_info = i()
         getrf_work, gesvdj_work = i(), i()
         with torch.cuda.device(dev):
@@ -344,10 +368,46 @@ class _StepLibrary:
         # getrsBatched's arrays of matrix pointers
         self.lu_ptrs = to_device([self.lu.data_ptr()], dev, torch.int64)
         self.rhs_ptrs = to_device([self.rhs.data_ptr()], dev, torch.int64)
+        self.dev = dev
+        self.side = torch.cuda.Stream(dev)
+        self.kept: dict = {}
 
     def bind(self, stream: int) -> None:
         _library_check(self.solver.cusolverDnSetStream(self.dn, stream))
         _library_check(self.blas.cublasSetStream_v2(self.bh, stream))
+        _library_check(self.blas.cublasSetWorkspace_v2(
+            self.bh, self.workspace.data_ptr(), _BLAS_WORKSPACE))
+
+    def capture(self, enqueue):
+        """(A CUDA graph of the work `enqueue(stream)` queues, what it
+        returned: tensors the graph reads, to keep while it is replayed).
+
+        The capture runs on the side stream through capture_begin and
+        capture_end, into a memory pool of the graph's own, with no host
+        wait (torch.cuda.graph's context would synchronize, collect garbage
+        and empty the cache first); only this thread's calls are held to
+        the capture's rules, so a profiler's thread may run meanwhile."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                stream = _build.stream_ptr(self.dev)
+                self.bind(stream)
+                held = enqueue(stream)
+            finally:
+                graph.capture_end()
+        self.bind(_build.stream_ptr(self.dev))
+        return graph, held
+
+    def buffers(self, key, make):
+        """The tensors kept for `key`, made by `make()` where none are; the
+        newest KEPT_KEYS keys are kept, the one used longest ago dropped
+        first (with its graph and its graph's pool)."""
+        kept = self.kept.pop(key, None)
+        self.kept[key] = make() if kept is None else kept
+        while len(self.kept) > KEPT_KEYS:
+            del self.kept[next(iter(self.kept))]
+        return self.kept[key]
 
     def _gemm(self, ta, tb, m, n, k, a, lda, b, ldb, c, ldc) -> None:
         # column-major c (m x n) = op(a) op(b)
@@ -403,6 +463,54 @@ def _step_library(dev: torch.device) -> _StepLibrary:
     return _StepLibrary(dev)
 
 
+class _PairBuffers:
+    """icp_plane_annealed's tensors for one key of pair shapes and settings,
+    and the CUDA graph of its iteration once a pair of the key has stepped.
+    The graph's launch arguments point into these tensors, so each later
+    pair of the key copies its destination in and replays the same graph.
+    """
+
+    def __init__(self, dev, n: int, m: int, slots: int):
+        f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        mp = -(-m // DST_CHUNK) * DST_CHUNK
+        tiles = -(-n // SRC_TILE)
+        self.state = torch.empty(STATE_WORDS, **i32)
+        # every evaluation's chunk ranges, a slot each, and the running one's
+        self.ranges = torch.empty((slots, 2, tiles), **i32)
+        self.c0, self.c1 = torch.empty((2, tiles), **i32)
+        self.src_k = torch.empty((n, 3), **f32)     # the source, stage order
+        self.smask_k = torch.empty(n, dtype=torch.bool, device=dev)
+        # the destination as nn.window_destination makes it, and its normals
+        self.dstp = torch.empty((mp, 3), **f32)
+        self.dmaskp = torch.empty(mp, dtype=torch.bool, device=dev)
+        self.chunk_lo = torch.empty(mp // DST_CHUNK, **f32)
+        self.chunk_hi = torch.empty(mp // DST_CHUNK, **f32)
+        self.sorted_ok = torch.empty((), dtype=torch.bool, device=dev)
+        self.nrm = torch.empty((m, 3), **f32)
+        self.p = torch.empty((n, 3), **f32)
+        self.J, self.Jw = torch.empty((2, n, 6), **f32)
+        self.r, self.dd = torch.empty(n, **f32), torch.empty(n, **f32)
+        self.xs, self.dT = torch.empty(6, **f32), torch.empty((4, 4), **f32)
+        # a step's pose (the one last evaluated), and the pose it moves to
+        self.cur, self.moved = torch.empty((2, 4, 4), **f32)
+        self.best_d, self.best_i, self.parts = window_outputs(n, mp, dev)
+        self.graph = None
+        self.sdd = None         # the sum of d^2 the graph's eval kernel reads
+        self.launched: dict = {}    # the kernel launches a replay makes
+
+
+def _taken_back(before: dict) -> dict:
+    """The process counters' growth since `before` (a copy of COUNTS),
+    taken back out of them: what a graph capture counted as launched,
+    which only the graph's replays launch."""
+    grown = {k: v - before.get(k, 0) for k, v in COUNTS.items()
+             if v != before.get(k, 0)}
+    for k, v in grown.items():
+        COUNTS[k] -= v
+    return grown
+
+
 def icp_plane_annealed(src: torch.Tensor, dst: torch.Tensor,
                        dst_normals: torch.Tensor, thresholds,
                        src_mask: torch.Tensor | None = None,
@@ -417,21 +525,32 @@ def icp_plane_annealed(src: torch.Tensor, dst: torch.Tensor,
     of the plain version (that chain of host loops,
     refine._annealed_icp_plain) on the card.
 
-    An iteration: the prep kernel (src moved by the pose, each tile's
-    chunk range), K4 (nn_min_windowed; over the whole destination where
+    An evaluation of a pose: the prep kernel (src moved by the pose, each
+    tile's chunk range), K4 (window_scan; over the whole destination where
     the window of nn_window >= 1 chunks covers it, where the host loop
     takes K3, which gives the same minima and indices), the terms kernel,
-    the plain version's sum of d^2 (torch.sum), the normal equations, the
-    eval kernel (metrics, best pose, the loop's condition, the damped
-    system), then, while the condition holds, the solve, the rotation
-    kernel, the SVD, U @ Vh, the dt kernel and dT @ T (cuBLAS and
-    cuSOLVER called as PyTorch calls them, without its waits and per-call
-    set-up: `_StepLibrary`). The host reads the condition once an
-    evaluation, its one wait (a counted sync). The destination is sorted once for all
-    stages, the source at each stage's start, as `_setup` sorts them.
+    the plain version's sum of d^2 (torch.sum), the normal equations and
+    the eval kernel (metrics, best pose, the loop's condition, the damped
+    system). A step: the solve, the rotation kernel, the SVD, U @ Vh, the
+    dt kernel and dT @ T (cuBLAS and cuSOLVER called as PyTorch calls
+    them, without its waits and per-call set-up: `_StepLibrary`). The
+    host reads the condition once an evaluation, its one wait (a counted
+    sync). Each stage sorts the source by its starting pose, as `_setup`
+    does, writes its threshold into the pair's state and queues its first
+    evaluation call by call. The first step of the first pair of a key of
+    shapes and settings captures an iteration (a step and the evaluation
+    of its pose) in a CUDA graph; every iteration of that pair and of the
+    key's later pairs is then one launch of it and the wait. Nothing an
+    iteration or a pair changes is a launch argument: the iteration
+    number, the ranges' slot and the threshold are in the state on the
+    card, and the poses and the pair's sorted destination are in the
+    key's tensors (`_PairBuffers`), into which each pair copies its own.
+    The destination is sorted once for all stages. The chunk ranges of
+    every evaluation's scan go to the open `nn.window_tally`, as
+    nn_min_windowed's do.
 
     Returns the last stage's ICPResult; the transformation, fitness and
-    RMSE are views of the pair's state on the card."""
+    RMSE are views of one copy of the pair's result on the card."""
     dev = src.device
     n, m = src.shape[0], dst.shape[0]
     if n == 0 or m == 0 or not thresholds or nn_window < 1:
@@ -444,77 +563,100 @@ def icp_plane_annealed(src: torch.Tensor, dst: torch.Tensor,
              if dst_mask is None else dst_mask.to(torch.bool))
     od = torch.argsort(dst[:, nn_axis], stable=True)
     dst = dst.to(torch.float32)[od]
-    dmask, dst_normals = dmask[od], dst_normals.to(torch.float32)[od]
+    dmask, nrm = dmask[od], dst_normals.to(torch.float32)[od]
     # the destination's chunks, as nn.window_ranges makes them each iteration
     dstp, dmaskp, chunk_lo, chunk_hi, sorted_ok = window_destination(
         dst, dmask, nn_axis)
-    nrm = dst_normals.contiguous()
     full = int(nn_window * DST_CHUNK >= m)
 
-    f32 = dict(dtype=torch.float32, device=dev)
-    state = torch.zeros(STATE_WORDS, dtype=torch.int32, device=dev)
-    words = state.view(torch.float32)
+    key = (n, m, nn_axis, full, max_iterations, relative_fitness,
+           relative_rmse, len(thresholds))
+    lin = _step_library(dev)
+    b = lin.buffers(key, lambda: _PairBuffers(
+        dev, n, m, len(thresholds) * (max_iterations + 1)))
+    _build.check_operands(b.state, src, smask, dstp, dmaskp, nrm)
+    for kept, pair in ((b.dstp, dstp), (b.dmaskp, dmaskp),
+                       (b.chunk_lo, chunk_lo), (b.chunk_hi, chunk_hi),
+                       (b.sorted_ok, sorted_ok), (b.nrm, nrm)):
+        kept.copy_(pair)
+    b.state.zero_()
+    words = b.state.view(torch.float32)
     T_state = words[:16].view(4, 4)
     words[0:16:5] = 1.0                        # the identity
-    tiles = -(-n // SRC_TILE)
-    ranges = torch.empty((len(thresholds) * (max_iterations + 1), 2, tiles),
-                         dtype=torch.int32, device=dev)
-    p = torch.empty((n, 3), **f32)
-    J, Jw = torch.empty((n, 6), **f32), torch.empty((n, 6), **f32)
-    r, dd = torch.empty(n, **f32), torch.empty(n, **f32)
-    xs, dT = torch.empty(6, **f32), torch.empty((4, 4), **f32)
-    poses = torch.empty((2, 4, 4), **f32)      # the iterates, in turn
-    keep = state[KEEP_WORD]
-    lin = _step_library(dev)
-    _build.check_operands(src, smask, dstp, dmaskp, nrm, chunk_lo, chunk_hi,
-                          sorted_ok, state, ranges, p, J, Jw, r, dd, xs, dT,
-                          poses, lin.A)
+    keep = b.state[KEEP_WORD]
     lib = _build.load()
+
+    def evaluate(T, stream):
+        """Queue the evaluation of the pose T; returns the sum of d^2 the
+        eval kernel reads."""
+        _build.check(lib.otslam_icp_prep(
+            b.src_k.data_ptr(), T.data_ptr(), b.chunk_lo.data_ptr(),
+            b.chunk_hi.data_ptr(), b.sorted_ok.data_ptr(), n,
+            b.chunk_lo.shape[0], nn_axis, b.state.data_ptr(), full,
+            b.p.data_ptr(), b.c0.data_ptr(), b.c1.data_ptr(),
+            b.ranges.data_ptr(), stream), "otslam_icp_prep")
+        window_scan(b.p, b.dstp, b.dmaskp, b.c0, b.c1, b.best_d, b.best_i,
+                    b.parts)
+        _build.check(lib.otslam_icp_terms(
+            b.p.data_ptr(), b.smask_k.data_ptr(), b.dstp.data_ptr(),
+            b.nrm.data_ptr(), b.best_d.data_ptr(), b.best_i.data_ptr(), n,
+            m, b.J.data_ptr(), b.Jw.data_ptr(), b.r.data_ptr(),
+            b.dd.data_ptr(), b.state.data_ptr(), stream), "otslam_icp_terms")
+        sdd = torch.sum(b.dd)
+        lin.normal(b.J, b.Jw, b.r)
+        _build.check(lib.otslam_icp_eval(
+            b.state.data_ptr(), T.data_ptr(), sdd.data_ptr(),
+            lin.A.data_ptr(), lin.g.data_ptr(), max_iterations,
+            relative_fitness, relative_rmse, lin.lu.data_ptr(),
+            lin.rhs.data_ptr(), b.cur.data_ptr(), stream), "otslam_icp_eval")
+        return sdd
+
+    def iteration(stream):
+        """Queue a step from the pose last evaluated and the evaluation of
+        the pose it moves to."""
+        lin.solve()
+        _build.check(lib.otslam_icp_rotation(
+            lin.rhs.data_ptr(), b.xs.data_ptr(), lin.a.data_ptr(), stream),
+            "otslam_icp_rotation")
+        lin.svd()
+        lin.rotation()
+        _build.check(lib.otslam_icp_dt(lin.Rn.data_ptr(), b.xs.data_ptr(),
+                                       b.dT.data_ptr(), stream),
+                     "otslam_icp_dt")
+        lin.compose(b.dT, b.cur, b.moved)
+        return evaluate(b.moved, stream)
+
     stream = _build.stream_ptr(dev)
     lin.bind(stream)
-    views = iter(ranges)
-    it = 0
+    evaluations = 0
     for thr in thresholds:
         p0 = src @ T_state[:3, :3].T + T_state[:3, 3]
         order = torch.argsort(p0[:, nn_axis], stable=True)
-        src_k, smask_k = src[order], smask[order]
-        T = T_state
+        torch.index_select(src, 0, order, out=b.src_k)
+        torch.index_select(smask, 0, order, out=b.smask_k)
+        words[THRESHOLD_WORD].fill_(thr)       # a fill: no copy, no wait
+        evaluate(T_state, stream)
         it = 0
         while True:
-            c0, c1 = next(views)
-            _build.check(lib.otslam_icp_prep(
-                src_k.data_ptr(), T.data_ptr(), chunk_lo.data_ptr(),
-                chunk_hi.data_ptr(), sorted_ok.data_ptr(), n,
-                chunk_lo.shape[0], nn_axis, thr, full, p.data_ptr(),
-                c0.data_ptr(), c1.data_ptr(), stream), "otslam_icp_prep")
-            best_d, best_i = nn_min_windowed(p, dstp, dmaskp, c0, c1)
-            _build.check(lib.otslam_icp_terms(
-                p.data_ptr(), smask_k.data_ptr(), dstp.data_ptr(),
-                nrm.data_ptr(), best_d.data_ptr(), best_i.data_ptr(), n, m,
-                thr, J.data_ptr(), Jw.data_ptr(), r.data_ptr(),
-                dd.data_ptr(), state.data_ptr(), stream), "otslam_icp_terms")
-            sdd = torch.sum(dd)
-            lin.normal(J, Jw, r)
-            _build.check(lib.otslam_icp_eval(
-                state.data_ptr(), T.data_ptr(), sdd.data_ptr(),
-                lin.A.data_ptr(), lin.g.data_ptr(), it, max_iterations,
-                relative_fitness,
-                relative_rmse, lin.lu.data_ptr(), lin.rhs.data_ptr(), stream),
-                "otslam_icp_eval")
+            evaluations += 1
             waited(keep)
             if not bool(keep):
                 break
-            lin.solve()
-            _build.check(lib.otslam_icp_rotation(
-                lin.rhs.data_ptr(), xs.data_ptr(), lin.a.data_ptr(), stream),
-                "otslam_icp_rotation")
-            lin.svd()
-            lin.rotation()
-            _build.check(lib.otslam_icp_dt(lin.Rn.data_ptr(), xs.data_ptr(),
-                                           dT.data_ptr(), stream),
-                         "otslam_icp_dt")
-            lin.compose(dT, T, poses[it % 2])
-            T = poses[it % 2]
+            if b.graph is None:
+                before = dict(COUNTS)
+                b.graph, b.sdd = lin.capture(iteration)
+                b.launched = _taken_back(before)
+                count("icp.graph_captures")
+            b.graph.replay()
+            for name, k in b.launched.items():
+                count(name, k)
+            count("icp.graph_replays")
             it += 1
         count("icp.iterations", it)
-    return ICPResult(T_state, words[FIT_WORD], words[FIT_WORD + 1], it)
+    # the evaluations' ranges and the result, out of the tensors the next
+    # pair of the key reuses
+    used = b.ranges[:evaluations].clone()
+    tally_scans(zip(used[:, 0].unbind(), used[:, 1].unbind()))
+    out = words[:FIT_WORD + 2].clone()
+    return ICPResult(out[:16].view(4, 4), out[FIT_WORD], out[FIT_WORD + 1],
+                     it)

@@ -90,6 +90,13 @@ class WindowTally:
         count("nn.window_scans", len(self.ranges))
 
 
+def tally_scans(ranges) -> None:
+    """Keep windowed scans' chunk ranges, (c0, c1) a scan, in the open
+    window_tally, if any."""
+    if _TALLY is not None:
+        _TALLY.ranges.extend((c0, c1) for c0, c1 in ranges)
+
+
 @contextlib.contextmanager
 def window_tally():
     """Keep the chunk ranges of every windowed scan made in the block in a
@@ -355,8 +362,7 @@ def nn_min_windowed(src: torch.Tensor, dstp: torch.Tensor,
     (window_ranges' operands): kernel K4 on CUDA tensors, the plain
     version on CPU tensors. Identical results either way. Inside a
     `window_tally()` the ranges are kept for its `pairs()`."""
-    if _TALLY is not None:
-        _TALLY.ranges.append((c0, c1))
+    tally_scans([(c0, c1)])
     if src.device.type == "cpu":
         return nn_min_windowed_torch(src, dstp, dmaskp, c0, c1)
     n, mp = src.shape[0], dstp.shape[0]
@@ -366,18 +372,31 @@ def nn_min_windowed(src: torch.Tensor, dstp: torch.Tensor,
                          "c0/c1 hold one range per 256-row source tile")
     srcc, dstc, maskc = _operands(src, dstp, dmaskp)
     c0, c1 = (c.to(torch.int32).contiguous() for c in (c0, c1))
-    splits = split_count(n, mp, sm_count(src.device))
-    best_d, best_i, parts = _outputs(n, splits, src.device)
-    _build.check_operands(srcc, dstc, maskc, c0, c1, best_d, best_i, parts)
+    best_d, best_i, parts = window_outputs(n, mp, src.device)
+    window_scan(srcc, dstc, maskc, c0, c1, best_d, best_i, parts)
+    return best_d, best_i
+
+
+def window_outputs(n: int, mp: int, device):
+    """K4's outputs for n source rows against mp chunk-padded destination
+    rows: best_d, best_i and the key scratch of its split (`_outputs`)."""
+    return _outputs(n, split_count(n, mp, sm_count(device)), device)
+
+
+def window_scan(src, dstp, dmaskp, c0, c1, best_d, best_i, parts) -> None:
+    """K4 on the current stream into `window_outputs`' tensors, the
+    operands as nn_min_windowed passes them (f32, bool and int32 ranges,
+    contiguous); no window_tally keeps its ranges."""
+    _build.check_operands(src, dstp, dmaskp, c0, c1, best_d, best_i, parts)
     lib = _build.load()
-    code = lib.otslam_nn_window(srcc.data_ptr(), dstc.data_ptr(),
-                                maskc.data_ptr(), c0.data_ptr(),
-                                c1.data_ptr(), n, mp, splits,
-                                best_d.data_ptr(), best_i.data_ptr(),
+    splits = parts.shape[0] if parts.dim() == 2 else 1
+    code = lib.otslam_nn_window(src.data_ptr(), dstp.data_ptr(),
+                                dmaskp.data_ptr(), c0.data_ptr(),
+                                c1.data_ptr(), src.shape[0], dstp.shape[0],
+                                splits, best_d.data_ptr(), best_i.data_ptr(),
                                 parts.data_ptr(),
                                 _build.stream_ptr(src.device))
     _build.check(code, "otslam_nn_window")
-    return best_d, best_i
 
 
 def nn_distance_radius(src: torch.Tensor, dst: torch.Tensor, radius: float,

@@ -19,7 +19,8 @@ the block-sparse path (the JAX package's fixed 2048-block capacity per
 frame, which the port keeps on purpose: frame-to-model tracking runs
 against the model fused under that cap).
 
-A pair's annealed ICP runs on the card with fused kernels
+A pair's annealed ICP runs on the card with fused kernels, its iteration
+replayed from a CUDA graph captured at the pair's first step
 (kernels/icp.py icp_plane_annealed; on the CPU its plain version, the host
 loop of icp_point_to_plane at each threshold), and its pose, fitness and
 RMSE come home in one copy.

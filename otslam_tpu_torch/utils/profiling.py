@@ -13,6 +13,10 @@ Counters (`COUNTS`, always on, one integer add each):
 * ``k1_blocks`` / ``k1_pairs``: the listed blocks and the (block, frame)
   pairs of each K1 work list (`tsdf_cuda.fuse_blocks`);
 * ``recon.objects``: `reconstruct_frames` calls;
+* ``icp.graph_captures`` / ``icp.graph_replays``: the CUDA graphs pair ICP
+  captured of its iteration (one a key of pair shapes and settings) and
+  their launches (one an iteration; over ``icp.iterations``, the share of
+  iterations a graph carried), in `kernels/icp.icp_plane_annealed`;
 * ``weld.packed`` / ``weld.lexsort``: card welds that sorted one packed
   key, or three chained keys (`kernels/marching._weld_device`).
 

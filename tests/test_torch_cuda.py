@@ -735,6 +735,52 @@ def test_icp_fused_without_inliers(dev):
     assert torch.equal(got[0], torch.eye(4, device=dev))
 
 
+def grown(before, name):
+    return COUNTS[name] - before.get(name, 0)
+
+
+def smaller_box(box):
+    """The box clouds with 700 source and 900 destination rows fewer."""
+    src, dst, nrm, smask = box
+    return src[:-700], dst[:-900], nrm[:-900], smask[:-700]
+
+
+@pytest.mark.parametrize("case", ["capped", "one_step", "first_evaluation",
+                                  "two_shapes"])
+def test_icp_fused_graph_cases(dev, box_on_card, case):
+    """The captured iteration at its edges, each run equal to the host
+    loop: stages that end at max_iterations 3 and 1 (one replay a stage),
+    stages that stop at their first evaluation (max_iterations 0: no step,
+    so nothing is captured or replayed), and pairs of two shapes in turn
+    (A, B, A), each shape with a graph of its own. Every iteration is one
+    replay; a key of shapes and settings captures once, at its first
+    pair's first step, and its later pairs replay that graph (A's key may
+    be kept from the tests before)."""
+    box = box_on_card
+    runs = {"capped": [(box, 3)], "one_step": [(box, 1)],
+            "first_evaluation": [(box, 0)],
+            "two_shapes": [(box, 15), (smaller_box(box), 15), (box, 15)]}
+    before = dict(COUNTS)
+    steps = 0
+    for (src, dst, nrm, smask), cap in runs[case]:
+        _, its = assert_loops_agree(src, dst, nrm, smask, None,
+                                    BOX_THRESHOLDS, covering(dst),
+                                    max_iterations=cap)
+        if case == "first_evaluation":
+            assert its == [0, 0, 0]
+        elif case != "two_shapes":
+            assert cap in its
+        steps += 2 * sum(its)       # assert_loops_agree runs it twice
+    assert grown(before, "icp.graph_replays") == steps
+    captures = grown(before, "icp.graph_captures")
+    if case == "first_evaluation":
+        assert captures == 0
+    elif case == "two_shapes":
+        assert 1 <= captures <= 2
+    else:                           # a key no other test uses
+        assert captures == 1
+
+
 @pytest.fixture(scope="module")
 def refine_capture(dev):
     """The recon.captures.refine cell's chair_1 at its VGA size and
@@ -781,6 +827,60 @@ def test_icp_fused_on_a_capture_pair(dev, refine_capture):
     res = refine._annealed_icp(src, pp, pn, pv, cv, THRESHOLDS, window)
     for a, b in zip(res, plain):
         assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def test_icp_fused_counters_are_the_profiled_launches(dev, refine_capture):
+    """One capture pair's fused ICP under torch.profiler, replaying the
+    graph the same pair captured before: each of its kernels launches in
+    the trace as often as its ``launches.*`` counter says, the graph's
+    replays are the iterations (a rotation kernel each), K4's launches are
+    the tallied scans, and the scans' rows and count are the host loop's
+    for the same pair. The fused loop's cuBLAS kernels (the sgemm, its
+    split-K reduce, the sgemv) are among those PyTorch runs for the host
+    loop."""
+    from benchmark.trace import Trace, kernel
+    from otslam_tpu_torch.core.se3 import invert_se3
+    from otslam_tpu_torch.pipeline import refine
+    batch, intr, _ = refine_capture
+    depths = torch.as_tensor(batch.depths[:2], device=dev)
+    pp, pn, pv = refine._frame_points_normals(depths[0], intr)
+    cp, _, cv = refine._frame_points_normals(depths[1], intr)
+    window = refine._pair_nn_window(cp, pp, max(THRESHOLDS))
+    ext = np.asarray(batch.extrinsics, np.float64)
+    src = refine._moved(cp, ext[0] @ invert_se3(ext[1]))
+
+    def traced(loop):
+        before = dict(COUNTS)
+        tracer = Trace(dev)
+        tracer.start()
+        with nn.window_tally() as tally:
+            res = loop(src, pp, pn, pv, cv, THRESHOLDS, window)
+        refine._pair_result(res, tally)
+        summary = tracer.stop()
+        return summary, {k: grown(before, k) for k in list(COUNTS)}
+    refine._annealed_icp(src, pp, pn, pv, cv, THRESHOLDS, window)  # warms
+    host, host_counts = traced(refine._annealed_icp_plain)
+    fused, got = traced(refine._annealed_icp)
+    names = {"otslam_icp_prep": "icp_prep_kernel",
+             "otslam_nn_window": "nn_window_kernel",
+             "otslam_icp_terms": "icp_terms_kernel",
+             "otslam_icp_eval": "icp_eval_kernel",
+             "otslam_icp_rotation": "icp_rotation_kernel",
+             "otslam_icp_dt": "icp_dt_kernel"}
+    for entry, name in names.items():
+        assert kernel(fused, name)[0] == got["launches." + entry] > 0, name
+    assert got["icp.graph_captures"] == 0    # the warm-up's graph replays
+    assert got["icp.graph_replays"] == got["icp.iterations"] == \
+        got["launches.otslam_icp_rotation"]
+    assert got["nn.window_scans"] == got["launches.otslam_nn_window"] == \
+        got["icp.iterations"] + len(THRESHOLDS)
+    if window[0] * nn.DST_CHUNK < pp.shape[0]:     # the host loop's K4 too
+        assert got["nn.window_scans"] == host_counts["nn.window_scans"]
+        assert got["nn.window_pairs"] == host_counts["nn.window_pairs"] > 0
+    blas = [k for k in fused["kernels"]
+            if "gemm" in k or "splitKreduce" in k or "dot_kernel" in k]
+    assert any("splitKreduce" in k for k in blas)
+    assert set(blas) <= set(host["kernels"]), set(blas) - set(host["kernels"])
 
 
 def test_refined_object_waits_are_counted(dev, refine_capture):

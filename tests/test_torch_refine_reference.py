@@ -145,6 +145,38 @@ def grew(before, name):
     return COUNTS[name] - before.get(name, 0)
 
 
+def test_a_graph_capture_counts_nothing_its_replays_count():
+    """icp._taken_back: the counters a graph capture moved (the launches
+    it only records, a counter new to the process among them) go back out
+    of COUNTS and come back for each replay to add; the rest stay."""
+    before = dict(COUNTS)
+    COUNTS["launches.otslam_icp_prep"] += 1
+    COUNTS["launches.otslam_nn_window"] += 1
+    COUNTS["launches.otslam_test_capture_only"] += 2
+    moved = icp_mod._taken_back(before)
+    assert moved == {"launches.otslam_icp_prep": 1,
+                     "launches.otslam_nn_window": 1,
+                     "launches.otslam_test_capture_only": 2}
+    assert all(v == before.get(k, 0) for k, v in COUNTS.items())
+    assert icp_mod._taken_back(before) == {}
+    if "launches.otslam_test_capture_only" not in before:
+        del COUNTS["launches.otslam_test_capture_only"]
+
+
+def test_pair_buffers_are_kept_for_the_newest_keys():
+    """_StepLibrary.buffers: a key seen before gets its tensors back, a new
+    one makes them, and only the KEPT_KEYS keys used last are kept."""
+    from types import SimpleNamespace
+    lib, made = SimpleNamespace(kept={}), []
+    keys = [1, 2, 1] + list(range(3, 3 + icp_mod.KEPT_KEYS))
+    for k in keys:
+        got = icp_mod._StepLibrary.buffers(
+            lib, k, lambda k=k: made.append(k) or f"tensors {k}")
+        assert got == f"tensors {k}"
+    assert made == [1, 2] + keys[3:]
+    assert list(lib.kept) == ([2, 1] + keys[3:])[-icp_mod.KEPT_KEYS:]
+
+
 def test_iteration_and_pair_counters(monkeypatch):
     cap, _ = capture("chair_1", 31)
     pcfg, intr = program()
