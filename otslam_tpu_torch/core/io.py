@@ -268,9 +268,20 @@ def write_map_yaml(path: str, image: str, resolution: float,
 # Capture dataset (scanner_node format)
 # ---------------------------------------------------------------------------
 
+def read_bytes(path: str) -> bytes:
+    """The whole file at `path`."""
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def parse_pose_txt(data: bytes) -> np.ndarray:
+    """A pose file's bytes -> its 4x4 matrix (np.loadtxt of the text)."""
+    return np.loadtxt(data.decode().splitlines()).reshape(4, 4)
+
+
 def read_pose_txt(path: str) -> np.ndarray:
     """4x4 map->camera pose matrix, 6-decimal text (scanner_node.cpp:290-297)."""
-    return np.loadtxt(path).reshape(4, 4)
+    return parse_pose_txt(read_bytes(path))
 
 
 def write_pose_txt(path: str, pose: np.ndarray) -> None:
@@ -278,17 +289,25 @@ def write_pose_txt(path: str, pose: np.ndarray) -> None:
     np.savetxt(path, np.asarray(pose).reshape(4, 4), fmt="%.6f")
 
 
-def read_depth_png(path: str, depth_scale: float = 1000.0) -> np.ndarray:
-    """uint16 mm depth PNG -> float32 meters (0 where invalid)."""
+def decode_depth_png(data: bytes) -> np.ndarray:
+    """uint16 mm depth PNG bytes -> the (H, W) uint16 image, as
+    `cv2.imread(path, IMREAD_UNCHANGED)` decodes the file."""
     cv2 = _cv2()
     if cv2 is not None:
-        raw = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        raw = cv2.imdecode(np.frombuffer(data, np.uint8),
+                           cv2.IMREAD_UNCHANGED)
     else:  # pragma: no cover
+        import io
         from PIL import Image
-        raw = np.asarray(Image.open(path))
+        raw = np.asarray(Image.open(io.BytesIO(data)))
     if raw is None:
-        raise FileNotFoundError(path)
-    return raw.astype(np.float32) / depth_scale
+        raise ValueError("not a decodable depth PNG")
+    return raw
+
+
+def read_depth_png(path: str, depth_scale: float = 1000.0) -> np.ndarray:
+    """uint16 mm depth PNG -> float32 meters (0 where invalid)."""
+    return decode_depth_png(read_bytes(path)).astype(np.float32) / depth_scale
 
 
 def write_depth_png(path: str, depth_m: np.ndarray, depth_scale: float = 1000.0,
@@ -308,16 +327,23 @@ def write_depth_png(path: str, depth_m: np.ndarray, depth_scale: float = 1000.0,
         Image.fromarray(u16).save(path)
 
 
-def read_color(path: str) -> np.ndarray:
-    """Color image -> (H, W, 3) uint8 RGB."""
+def decode_color(data: bytes) -> np.ndarray:
+    """Color image bytes -> (H, W, 3) uint8 RGB, as `cv2.imread(path,
+    IMREAD_COLOR)` decodes the file."""
     cv2 = _cv2()
     if cv2 is not None:
-        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
         if bgr is None:
-            raise FileNotFoundError(path)
+            raise ValueError("not a decodable colour image")
         return bgr[..., ::-1].copy()
-    from PIL import Image  # pragma: no cover
-    return np.asarray(Image.open(path).convert("RGB"))
+    import io  # pragma: no cover
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def read_color(path: str) -> np.ndarray:
+    """Color image -> (H, W, 3) uint8 RGB."""
+    return decode_color(read_bytes(path))
 
 
 def write_color(path: str, rgb: np.ndarray) -> None:

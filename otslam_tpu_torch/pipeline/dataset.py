@@ -8,6 +8,18 @@ Layout (scanner_node.cpp:268-299):
 Object grouping mirrors reconstruct_rgbd.py:39-58: the object name is the
 filename minus its trailing frame number (``Object_0_3.jpg -> Object_0``).
 Frames sort lexically like the reference's sorted(glob(...)).
+
+`load_object` keeps, in the open recorder (utils/profiling.py), a span of
+each step of each frame:
+
+    load.read       the colour, depth and pose files' bytes
+    load.decode     the JPG's and the PNG's decodes (cv2.imdecode)
+    load.convert    the float32 conversions, the depth truncation, the
+                    pose parsing and its extrinsic; last, the stacking
+
+and counts the frames it loads (``load.frames``) and the bytes of their
+files (``load.bytes``). `reconstruct_object` holds the call in its
+``recon.load`` stage.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ import numpy as np
 from otslam_tpu_torch.config import CameraConfig
 from otslam_tpu_torch.core import io as tio
 from otslam_tpu_torch.core.se3 import T_FIX_OPTICAL, pose_to_extrinsic
+from otslam_tpu_torch.utils.profiling import count, span
 
 
 @dataclass
@@ -87,23 +100,37 @@ class CaptureDataset:
                     and os.path.exists(pf)):
                 continue
             try:
-                depth = tio.read_depth_png(df, self.camera.depth_scale)
-                color = tio.read_color(cf).astype(np.float32)
-                pose = tio.read_pose_txt(pf)
+                with span("load.read"):
+                    cbytes, dbytes, pbytes = (tio.read_bytes(f)
+                                              for f in (cf, df, pf))
+                count("load.bytes", len(cbytes) + len(dbytes) + len(pbytes))
+                with span("load.decode"):
+                    raw = tio.decode_depth_png(dbytes)
+                    rgb = tio.decode_color(cbytes)
+                with span("load.convert"):
+                    depth = raw.astype(np.float32) / self.camera.depth_scale
+                    # fusion-time truncation (RGBD depth_trunc,
+                    # reconstruct_rgbd.py:101)
+                    depth = np.where((depth > 0)
+                                     & (depth <= self.camera.depth_trunc),
+                                     depth, 0.0).astype(np.float32)
+                    color = rgb.astype(np.float32)
+                    pose = tio.parse_pose_txt(pbytes)
+                    ext = pose_to_extrinsic(pose, self.t_fix).astype(
+                        np.float32)
             except Exception:
                 continue
-            # fusion-time truncation (RGBD depth_trunc, reconstruct_rgbd.py:101)
-            depth = np.where((depth > 0) & (depth <= self.camera.depth_trunc),
-                             depth, 0.0).astype(np.float32)
             depths.append(depth)
             colors.append(color)
-            exts.append(pose_to_extrinsic(pose, self.t_fix).astype(np.float32))
+            exts.append(ext)
             poses.append(pose)
             names.append(os.path.basename(cf))
+        count("load.frames", len(depths))
         if not depths:
             raise FileNotFoundError(f"no frames for object {obj_name!r} in {self.root}")
-        return FrameBatch(np.stack(depths), np.stack(colors), np.stack(exts),
-                          np.stack(poses), names)
+        with span("load.convert"):
+            return FrameBatch(np.stack(depths), np.stack(colors),
+                              np.stack(exts), np.stack(poses), names)
 
     def iter_objects(self) -> Iterator[tuple[str, FrameBatch]]:
         for name in self.object_names():

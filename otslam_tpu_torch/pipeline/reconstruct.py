@@ -16,10 +16,15 @@ kernels for CUDA tensors; "dense" reaches kernels/tsdf.py. ``refine``
 corrects the capture poses before the main fusion (pipeline/refine.py):
 "icp", "f2m" or "pgo".
 
-With `timings=`, ``reconstruct_frames`` records the call's span tree and
-counter changes (utils/profiling.py) under ``timings["trace"]``:
+With `timings=`, ``reconstruct_frames`` and ``reconstruct_object`` record
+the call's span tree and counter changes (utils/profiling.py) under
+``timings["trace"]``, in one recorder:
 
     recon.object
+    ├ recon.load            reconstruct_object: CaptureDataset.load_object
+    │  ├ load.read          each frame's files' bytes
+    │  ├ load.decode        its JPG and PNG decodes
+    │  └ load.convert       its float planes and pose; the stacking
     ├ recon.auto_volume
     ├ recon.refine          (refine != "none"; its refine.upload copies the
     │                         frames, and fuse.upload then only the poses)
@@ -72,7 +77,7 @@ BACKENDS = ("pallas", "sparse", "dense")
 OUTPUTS = ("cloud", "mesh")
 REFINERS = {"icp": _icp_poses, "f2m": refine_trajectory_f2m,
             "pgo": _pgo_poses}
-STAGES = ("auto_volume", "refine", "fuse", "extract")
+STAGES = ("load", "auto_volume", "refine", "fuse", "extract")
 
 
 def _observed_world_points(batch, intr: PinholeIntrinsics,
@@ -265,6 +270,32 @@ def extract_filtered_cloud(vol, cfg: ReconstructionConfig,
     return ReconstructionResult(p, c, nrm, 0, raw_count)
 
 
+def _check(output: str, refine: str) -> None:
+    if output not in OUTPUTS:
+        raise ValueError(f"unknown output {output!r}")
+    if refine != "none" and refine not in REFINERS:
+        raise ValueError(f"unknown refine {refine!r}")
+
+
+@contextlib.contextmanager
+def _object_record(timings: dict | None):
+    """One object's `recon.object` span, in a recorder of its own when
+    `timings` is given, which then receives the stages' seconds and the
+    record (see `reconstruct_frames`). The block sets the yielded dict's
+    "frames"."""
+    count("recon.objects")
+    out = {"object": COUNTS["recon.objects"]}
+    rec = recording() if timings is not None else contextlib.nullcontext()
+    with rec as r, span("recon.object"):
+        yield out
+    if timings is not None:
+        for stage in STAGES:
+            sec = r.seconds("recon." + stage)
+            if sec is not None:
+                timings[stage] = sec
+        timings["trace"] = {**out, "spans": r.spans, "counts": r.counts()}
+
+
 def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
                        cfg: ReconstructionConfig | None = None,
                        backend: str = "pallas", z_filter: bool = True,
@@ -294,57 +325,50 @@ def reconstruct_frames(batch: FrameBatch, intr: PinholeIntrinsics,
     "frames": the frame count, "spans": [[name, parent, t0_ns, t1_ns],
     ...] (the module docstring's tree), "counts": the change of each
     process counter}."""
-    if output not in OUTPUTS:
-        raise ValueError(f"unknown output {output!r}")
-    if refine != "none" and refine not in REFINERS:
-        raise ValueError(f"unknown refine {refine!r}")
-    cfg = cfg or ReconstructionConfig()
-    dev = resolve_device(device)
-    count("recon.objects")
-    obj = COUNTS["recon.objects"]
-    rec = recording() if timings is not None else contextlib.nullcontext()
-    with rec as r, span("recon.object"):
-        with span("recon.auto_volume"):
-            if auto_origin:
-                if auto_dims is None or auto_dims:
-                    cfg = auto_volume_config(batch, intr, cfg)
-                else:
-                    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
-                        cfg.tsdf, origin=auto_volume_origin(batch, intr,
-                                                            cfg)))
-            drain(dev)
-        depths, colors = batch.depths, batch.colors
-        if refine != "none":
-            with span("recon.refine"):
-                with span("refine.upload"):     # fuse_frames reuses them
-                    depths, colors = to_f32(depths, dev), to_f32(colors, dev)
-                refined = REFINERS[refine](depths, colors, batch.extrinsics,
-                                           intr, cfg, device=dev)
-                batch = dataclasses.replace(batch,
-                                            extrinsics=refined.extrinsics)
-                drain(dev)
-        with span("recon.fuse"):
-            vol = fuse_frames(depths, colors, batch.extrinsics, intr, cfg,
-                              backend, densify=False, device=dev)
-            drain(dev)
-        with span("recon.extract"):
-            if output == "mesh":
-                verts, faces, cols, normals = extract_mesh(vol)
-                res = ReconstructionResult(verts, cols, normals, 0,
-                                           len(verts), faces=faces)
+    _check(output, refine)
+    with _object_record(timings) as out:
+        res = _reconstruct(batch, intr, cfg or ReconstructionConfig(),
+                           backend, z_filter, seed, output, auto_origin,
+                           refine, auto_dims, resolve_device(device), draws)
+        out["frames"] = res.num_frames
+    return res
+
+
+def _reconstruct(batch, intr, cfg, backend, z_filter, seed, output,
+                 auto_origin, refine, auto_dims, dev, draws):
+    """`reconstruct_frames`' stages, inside the object's record."""
+    with span("recon.auto_volume"):
+        if auto_origin:
+            if auto_dims is None or auto_dims:
+                cfg = auto_volume_config(batch, intr, cfg)
             else:
-                res = extract_filtered_cloud(vol, cfg, seed=seed,
-                                             z_filter=z_filter, draws=draws)
+                cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+                    cfg.tsdf, origin=auto_volume_origin(batch, intr, cfg)))
+        drain(dev)
+    depths, colors = batch.depths, batch.colors
+    if refine != "none":
+        with span("recon.refine"):
+            with span("refine.upload"):     # fuse_frames reuses them
+                depths, colors = to_f32(depths, dev), to_f32(colors, dev)
+            refined = REFINERS[refine](depths, colors, batch.extrinsics,
+                                       intr, cfg, device=dev)
+            batch = dataclasses.replace(batch, extrinsics=refined.extrinsics)
             drain(dev)
-        res.num_frames = len(batch.names)
-        res.extrinsics = np.asarray(batch.extrinsics)
-    if timings is not None:
-        for stage in STAGES:
-            sec = r.seconds("recon." + stage)
-            if sec is not None:
-                timings[stage] = sec
-        timings["trace"] = {"object": obj, "frames": res.num_frames,
-                            "spans": r.spans, "counts": r.counts()}
+    with span("recon.fuse"):
+        vol = fuse_frames(depths, colors, batch.extrinsics, intr, cfg,
+                          backend, densify=False, device=dev)
+        drain(dev)
+    with span("recon.extract"):
+        if output == "mesh":
+            verts, faces, cols, normals = extract_mesh(vol)
+            res = ReconstructionResult(verts, cols, normals, 0, len(verts),
+                                       faces=faces)
+        else:
+            res = extract_filtered_cloud(vol, cfg, seed=seed,
+                                         z_filter=z_filter, draws=draws)
+        drain(dev)
+    res.num_frames = len(batch.names)
+    res.extrinsics = np.asarray(batch.extrinsics)
     return res
 
 
@@ -363,19 +387,27 @@ def reconstruct_object(ds: CaptureDataset, obj_name: str,
                        auto_origin: bool = False,
                        refine: str = "none",
                        auto_dims: bool | None = None, device="cuda",
-                       draws: torch.Tensor | None = None
+                       draws: torch.Tensor | None = None,
+                       timings: dict | None = None
                        ) -> ReconstructionResult:
     """Full per-object pipeline; writes <save_dir>/<obj_name>.ply if asked.
 
     output='cloud': filtered sampled point cloud (reconstruct_rgbd_filter.py);
     output='mesh': welded triangle mesh with vertex normals, saved with its
     faces (reconstruct_rgbd.py's extract_triangle_mesh +
-    compute_vertex_normals); see `reconstruct_frames` for the rest."""
-    batch = ds.load_object(obj_name, frame_numbers)
-    intr = PinholeIntrinsics.from_config(ds.camera)
-    res = reconstruct_frames(batch, intr, cfg, backend, z_filter, seed,
-                             output, auto_origin, refine, auto_dims, device,
-                             draws)
+    compute_vertex_normals); see `reconstruct_frames` for the rest.
+    `timings` is `reconstruct_frames`' with the "load" stage first (the
+    dataset read, no device work) and its spans in the same record; the
+    PLY write comes after the record."""
+    _check(output, refine)
+    with _object_record(timings) as out:
+        with span("recon.load"):
+            batch = ds.load_object(obj_name, frame_numbers)
+        intr = PinholeIntrinsics.from_config(ds.camera)
+        res = _reconstruct(batch, intr, cfg or ReconstructionConfig(),
+                           backend, z_filter, seed, output, auto_origin,
+                           refine, auto_dims, resolve_device(device), draws)
+        out["frames"] = res.num_frames
     _save(save_dir, obj_name, res)
     return res
 

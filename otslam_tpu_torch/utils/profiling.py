@@ -18,7 +18,9 @@ Counters (`COUNTS`, always on, one integer add each):
   their launches (one an iteration; over ``icp.iterations``, the share of
   iterations a graph carried), in `kernels/icp.icp_plane_annealed`;
 * ``weld.packed`` / ``weld.lexsort``: card welds that sorted one packed
-  key, or three chained keys (`kernels/marching._weld_device`).
+  key, or three chained keys (`kernels/marching._weld_device`);
+* ``load.bytes`` / ``load.frames``: the bytes of the colour, depth and pose
+  files `CaptureDataset.load_object` read, and the frames it loaded.
 
 Spans (`span(name)`) are kept only while a `recording()` is open: each
 keeps ``[name, parent, t0_ns, t1_ns]``, its parent being the innermost
