@@ -9,23 +9,31 @@ Object grouping mirrors reconstruct_rgbd.py:39-58: the object name is the
 filename minus its trailing frame number (``Object_0_3.jpg -> Object_0``).
 Frames sort lexically like the reference's sorted(glob(...)).
 
-`load_object` keeps, in the open recorder (utils/profiling.py), a span of
-each step of each frame:
+`load_object` lists an object's frames on the calling thread, then runs
+three phases over them, each one `map` over the frames and one span of
+the open recorder (utils/profiling.py):
 
-    load.read       the colour, depth and pose files' bytes
-    load.decode     the JPG's and the PNG's decodes (cv2.imdecode)
-    load.convert    the float32 conversions, the depth truncation, the
-                    pose parsing and its extrinsic; last, the stacking
+    load.read       each frame's colour, depth and pose files, read whole
+    load.decode     its JPG's and PNG's decodes (cv2.imdecode)
+    load.convert    its float32 planes, with the depth truncation, written
+                    into the object's stacked arrays; its pose and extrinsic
 
-and counts the frames it loads (``load.frames``) and the bytes of their
-files (``load.bytes``). `reconstruct_object` holds the call in its
-``recon.load`` stage.
+The frames are independent, and the decodes and NumPy's casts release
+the interpreter lock, so the phases run on a pool of host threads, one
+executor a process (made again in a forked child), as wide as the
+usable cores or the frames; with one of either they run inline on the
+calling thread. Workers open no spans and touch no counters: the calling
+thread counts the frames loaded (``load.frames``), those loaded on the
+pool (``load.pooled``) and the bytes of their files (``load.bytes``).
+`reconstruct_object` holds the call in its ``recon.load`` stage.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
@@ -46,6 +54,51 @@ class FrameBatch:
     extrinsics: np.ndarray  # (N, 4, 4) f32 world->optical camera
     poses: np.ndarray       # (N, 4, 4) f64 raw map->body poses
     names: list
+
+
+_POOL = None    # (pid, cores, ThreadPoolExecutor) of load_object's phases
+_POOL_LOCK = threading.Lock()
+
+
+def _frame_pool(frames: int) -> ThreadPoolExecutor | None:
+    """The process's executor for `frames` frames, as wide as its usable
+    cores (its threads start as tasks arrive, so a phase runs on at most
+    min(frames, cores)); None where one frame or one core leaves nothing
+    to share. Made again after a fork, whose child has none of the
+    parent's threads, or when the usable cores change; the one it
+    replaces is dropped, not shut down, so a call still mapping on it
+    finishes (its idle threads end once it is collected)."""
+    global _POOL
+    cores = len(os.sched_getaffinity(0))
+    if min(frames, cores) <= 1:
+        return None
+    key = (os.getpid(), cores)
+    with _POOL_LOCK:
+        if _POOL is None or _POOL[:2] != key:
+            _POOL = (*key, ThreadPoolExecutor(
+                cores, thread_name_prefix="load_object"))
+        return _POOL[2]
+
+
+def _guarded(fn):
+    """`fn` of one frame, None where the frame is gone (None) or `fn`
+    raises: a frame skipped like the reference's per-frame guards."""
+    def call(x):
+        if x is None:
+            return None
+        try:
+            return fn(x)
+        except Exception:
+            return None
+    return call
+
+
+def _read_frame(files: tuple) -> tuple:
+    return tuple(tio.read_bytes(f) for f in files)
+
+
+def _decode_frame(blobs: tuple) -> tuple:
+    return tio.decode_depth_png(blobs[1]), tio.decode_color(blobs[0])
 
 
 def get_unique_object_names(color_dir: str) -> list:
@@ -94,43 +147,60 @@ class CaptureDataset:
                  os.path.join(self.depth_dir, f"{obj_name}_{i}.png"),
                  os.path.join(self.pose_dir, f"{obj_name}_{i}.txt"))
                 for i in frame_numbers]
-        depths, colors, exts, poses, names = [], [], [], [], []
-        for cf, df, pf in triplets:
-            if not (os.path.exists(cf) and os.path.exists(df)
-                    and os.path.exists(pf)):
-                continue
-            try:
-                with span("load.read"):
-                    cbytes, dbytes, pbytes = (tio.read_bytes(f)
-                                              for f in (cf, df, pf))
-                count("load.bytes", len(cbytes) + len(dbytes) + len(pbytes))
-                with span("load.decode"):
-                    raw = tio.decode_depth_png(dbytes)
-                    rgb = tio.decode_color(cbytes)
-                with span("load.convert"):
-                    depth = raw.astype(np.float32) / self.camera.depth_scale
-                    # fusion-time truncation (RGBD depth_trunc,
-                    # reconstruct_rgbd.py:101)
-                    depth = np.where((depth > 0)
-                                     & (depth <= self.camera.depth_trunc),
-                                     depth, 0.0).astype(np.float32)
-                    color = rgb.astype(np.float32)
-                    pose = tio.parse_pose_txt(pbytes)
-                    ext = pose_to_extrinsic(pose, self.t_fix).astype(
-                        np.float32)
-            except Exception:
-                continue
-            depths.append(depth)
-            colors.append(color)
-            exts.append(ext)
-            poses.append(pose)
-            names.append(os.path.basename(cf))
-        count("load.frames", len(depths))
-        if not depths:
-            raise FileNotFoundError(f"no frames for object {obj_name!r} in {self.root}")
+        frames = [t for t in triplets if all(map(os.path.exists, t))]
+        pool = _frame_pool(len(frames))
+        run = map if pool is None else pool.map
+        with span("load.read"):
+            blobs = list(run(_guarded(_read_frame), frames))
+        count("load.bytes", sum(len(b) for bs in blobs if bs for b in bs))
+        with span("load.decode"):
+            images = list(run(_guarded(_decode_frame), blobs))
         with span("load.convert"):
-            return FrameBatch(np.stack(depths), np.stack(colors),
-                              np.stack(exts), np.stack(poses), names)
+            kept, planes = self._convert(images, blobs, run)
+        count("load.frames", len(kept))
+        count("load.pooled", 0 if pool is None else len(kept))
+        if not kept:
+            raise FileNotFoundError(f"no frames for object {obj_name!r} in {self.root}")
+        return FrameBatch(*planes, [os.path.basename(frames[i][0])
+                                    for i in kept])
+
+    def _convert(self, images: list, blobs: list, run) -> tuple:
+        """(the kept frames' indices, their stacked depths, colours,
+        extrinsics and poses): `run` parses the decoded frames' poses, then
+        writes each kept frame's float planes into its row. A frame whose
+        pose fails is not kept; kept frames of another size fail as
+        `np.stack` fails."""
+        posed = list(run(_guarded(self._pose), [
+            None if im is None else b for im, b in zip(images, blobs)]))
+        kept = [i for i, p in enumerate(posed) if p is not None]
+        if not kept:
+            return [], None
+        raw, rgb = images[kept[0]]
+        if any(images[i][0].shape != raw.shape
+               or images[i][1].shape != rgb.shape for i in kept):
+            raise ValueError("all input arrays must have the same shape")
+        depths = np.empty((len(kept), *raw.shape), np.float32)
+        colors = np.empty((len(kept), *rgb.shape), np.float32)
+        list(run(lambda r: self._planes(*images[kept[r]], depths[r],
+                                        colors[r]), range(len(kept))))
+        return kept, (depths, colors, np.stack([posed[i][1] for i in kept]),
+                      np.stack([posed[i][0] for i in kept]))
+
+    def _pose(self, blobs: tuple) -> tuple:
+        """A frame's map->body pose and its world->optical extrinsic."""
+        pose = tio.parse_pose_txt(blobs[2])
+        return pose, pose_to_extrinsic(pose, self.t_fix).astype(np.float32)
+
+    def _planes(self, raw: np.ndarray, rgb: np.ndarray, depth: np.ndarray,
+                color: np.ndarray) -> None:
+        """One frame's float32 depth in meters, 0 outside (0, depth_trunc]
+        (the fusion-time truncation, RGBD depth_trunc,
+        reconstruct_rgbd.py:101), and float32 colour, into `depth` and
+        `color`."""
+        np.divide(raw.astype(np.float32), self.camera.depth_scale,
+                  out=depth)
+        depth[~((depth > 0) & (depth <= self.camera.depth_trunc))] = 0.0
+        color[...] = rgb
 
     def iter_objects(self) -> Iterator[tuple[str, FrameBatch]]:
         for name in self.object_names():

@@ -22,9 +22,9 @@ the call's span tree and counter changes (utils/profiling.py) under
 
     recon.object
     ├ recon.load            reconstruct_object: CaptureDataset.load_object
-    │  ├ load.read          each frame's files' bytes
-    │  ├ load.decode        its JPG and PNG decodes
-    │  └ load.convert       its float planes and pose; the stacking
+    │  ├ load.read          the frames' files' bytes      (a phase each:
+    │  ├ load.decode        their JPG and PNG decodes      one map over the
+    │  └ load.convert       their float planes and poses   frames, pooled)
     ├ recon.auto_volume
     ├ recon.refine          (refine != "none"; its refine.upload copies the
     │                         frames, and fuse.upload then only the poses)

@@ -19,8 +19,10 @@ Counters (`COUNTS`, always on, one integer add each):
   iterations a graph carried), in `kernels/icp.icp_plane_annealed`;
 * ``weld.packed`` / ``weld.lexsort``: card welds that sorted one packed
   key, or three chained keys (`kernels/marching._weld_device`);
-* ``load.bytes`` / ``load.frames``: the bytes of the colour, depth and pose
-  files `CaptureDataset.load_object` read, and the frames it loaded.
+* ``load.bytes`` / ``load.frames`` / ``load.pooled``: the bytes of the
+  colour, depth and pose files `CaptureDataset.load_object` read, the
+  frames it loaded, and those of them loaded on its pool of host threads
+  (over ``load.frames``, how often the pool engaged).
 
 Spans (`span(name)`) are kept only while a `recording()` is open: each
 keeps ``[name, parent, t0_ns, t1_ns]``, its parent being the innermost

@@ -130,7 +130,8 @@ def test_traced_record_holds_the_load_under_one_recorder(folder):
     for name, parent in TREE.items():
         assert parents[name] == parent, name
     names = [s[0] for s in rec["spans"]]
-    assert names.count("load.read") == names.count("load.decode") == 3
+    assert names.count("load.read") == names.count("load.decode") \
+        == names.count("load.convert") == 1     # one span a phase
     assert names.count("recon.object") == 1
     assert rec["frames"] == res.num_frames == 3
     assert rec["counts"]["load.frames"] == 3
