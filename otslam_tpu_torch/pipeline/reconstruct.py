@@ -27,7 +27,8 @@ the call's span tree and counter changes (utils/profiling.py) under
     │  └ load.convert       their float planes and poses   frames, pooled)
     ├ recon.auto_volume
     ├ recon.refine          (refine != "none"; its refine.upload copies the
-    │                         frames, and fuse.upload then only the poses)
+    │                         frames, and fuse.upload then only the poses;
+    │                         the refiner's own spans, pipeline/refine.py)
     ├ recon.fuse
     │  ├ fuse.upload        the host frames to the card
     │  ├ fuse.volume        the block volume's allocation and zero fill

@@ -30,13 +30,23 @@ counters ``icp.pairs`` (frame pairs registered by ICP) and
 ``refine.fallbacks`` (corrections the trust region rejected); the rows of
 each pair's windowed scans, tallied on the device, come home in the pose
 fetch's copy and go to ``nn.window_pairs`` and ``nn.window_scans``
-(kernels/nn.py). Under a recorder, the ICP refiner keeps the spans
+(kernels/nn.py). The frame-to-model tracker counts ``track.frames`` and
+``track.iterations`` (its Gauss-Newton iterations, a fixed number a
+frame); the pose graph counts ``pgo.loop_candidates`` (frame pairs near
+enough to verify), ``pgo.loop_edges`` (those verified), ``pgo.edges``
+(chain and loop edges solved) and ``pgo.iterations``. Under a recorder,
+the refiners keep the spans
 
     refine.upload   the frames to the device (or reconstruct_frames' upload)
     refine.frames   points and normals from each frame's depth gradients
     refine.window   the host fetch of a pair's clouds and auto_nn_window
     refine.icp      one pair's annealed ICP
     refine.chain    the pose fetch, the trust region and the host compose
+    refine.track    f2m: one frame's tracking solve, to its pose fetch
+    refine.model    f2m: one frame fused into the tracking model (frame 0's
+                    with the model's allocation), ending in a drain
+    refine.loops    pgo: the loop candidates' search and verification
+    refine.graph    pgo: the edges' upload, the solve and the poses' copy
     refine.fuse     the public functions' fusion at the refined poses
 """
 
@@ -59,7 +69,7 @@ from otslam_tpu_torch.kernels.pose_graph import optimize_pose_graph
 from otslam_tpu_torch.kernels.track import track_frame_to_tsdf
 from otslam_tpu_torch.kernels.tsdf_block import (integrate_frames_sparse,
                                                  make_block_volume)
-from otslam_tpu_torch.utils.profiling import count, span, waited
+from otslam_tpu_torch.utils.profiling import count, drain, span, waited
 
 
 PAIR_ICP_ITERATIONS = 15    # a frame pair's ICP iterations at each threshold
@@ -321,30 +331,37 @@ def refine_trajectory_f2m(depths, colors, extrinsics, intr: PinholeIntrinsics,
     out_ext = [ext[0]]
     fitness, rmses = [], []
 
-    vol = integrate_frames_sparse(make_block_volume(cfg.tsdf, dev),
-                                  depths_t[:1], colors_t[:1],
-                                  to_f32(extrinsics[:1], dev), intr,
-                                  max_active=max_active)
-    for i in range(1, n):
-        # odometry increment composed onto the corrected predecessor
-        E_prior = (ext[i] @ invert_se3(ext[i - 1])) @ out_ext[-1]
-        pts, mask = _frame_points(depths_t[i], intr, stride)
-        res = track_frame_to_tsdf(vol, pts, mask,
-                                  to_f32(invert_se3(E_prior), dev),
-                                  max_iterations=max_iterations)
-        T = to_host(res.transformation).astype(np.float64)
-        dT = T @ E_prior                        # camera->world correction
-        if _outside_trust(dT, trust_rot, trust_translation):
-            corrected = E_prior
-        else:
-            corrected = invert_se3(T)
-        out_ext.append(corrected)
-        fitness.append(_fetched(res.inlier_fraction))
-        rmses.append(_fetched(res.rmse))
-        vol = integrate_frames_sparse(vol, depths_t[i:i + 1],
-                                      colors_t[i:i + 1],
-                                      to_f32(corrected[None], dev), intr,
+    with span("refine.model"):
+        vol = integrate_frames_sparse(make_block_volume(cfg.tsdf, dev),
+                                      depths_t[:1], colors_t[:1],
+                                      to_f32(extrinsics[:1], dev), intr,
                                       max_active=max_active)
+        drain(dev)
+    for i in range(1, n):
+        with span("refine.track"):
+            # odometry increment composed onto the corrected predecessor
+            E_prior = (ext[i] @ invert_se3(ext[i - 1])) @ out_ext[-1]
+            pts, mask = _frame_points(depths_t[i], intr, stride)
+            res = track_frame_to_tsdf(vol, pts, mask,
+                                      to_f32(invert_se3(E_prior), dev),
+                                      max_iterations=max_iterations)
+            count("track.frames")
+            count("track.iterations", max_iterations)
+            T = to_host(res.transformation).astype(np.float64)
+            dT = T @ E_prior                    # camera->world correction
+            if _outside_trust(dT, trust_rot, trust_translation):
+                corrected = E_prior
+            else:
+                corrected = invert_se3(T)
+            out_ext.append(corrected)
+            fitness.append(_fetched(res.inlier_fraction))
+            rmses.append(_fetched(res.rmse))
+        with span("refine.model"):
+            vol = integrate_frames_sparse(vol, depths_t[i:i + 1],
+                                          colors_t[i:i + 1],
+                                          to_f32(corrected[None], dev), intr,
+                                          max_active=max_active)
+            drain(dev)
 
     return RefineResult(np.stack(out_ext).astype(np.float32), vol, fitness,
                         rmses)
@@ -392,6 +409,7 @@ def detect_loop_closures(depths, extrinsics, intr: PinholeIntrinsics,
             if d < radius:
                 cand.append((j - i, d, i, j))
     cand.sort(key=lambda c: (-c[0], c[1]))
+    count("pgo.loop_candidates", len(cand))
     used = set()
     edges = []
     cache = {}
@@ -414,6 +432,7 @@ def detect_loop_closures(depths, extrinsics, intr: PinholeIntrinsics,
             edges.append((i, j, M, fit))
             used.add(i)
             used.add(j)
+    count("pgo.loop_edges", len(edges))
     return edges
 
 
@@ -485,23 +504,27 @@ def _pgo_poses(depths, colors, extrinsics, intr, cfg, max_active=MAX_ACTIVE,
     else:
         raise ValueError(f"unknown front_end {front_end!r}")
 
-    loops = detect_loop_closures(depths_t, ext_chain, intr, stride=stride,
-                                 min_gap=min_gap, radius=loop_radius,
-                                 max_pairs=max_loop_pairs, device=dev)
-    for i, j, M, _ in loops:
-        ei.append(i)
-        ej.append(j)
-        Zs.append(M)
-        ws.append(2.0)      # loop edges weigh more: they carry global truth
+    with span("refine.loops"):
+        loops = detect_loop_closures(depths_t, ext_chain, intr,
+                                     stride=stride, min_gap=min_gap,
+                                     radius=loop_radius,
+                                     max_pairs=max_loop_pairs, device=dev)
+    with span("refine.graph"):
+        for i, j, M, _ in loops:
+            ei.append(i)
+            ej.append(j)
+            Zs.append(M)
+            ws.append(2.0)  # loop edges weigh more: they carry global truth
 
-    poses0 = np.stack([invert_se3(e) for e in ext_chain]).astype(np.float32)
-    res = optimize_pose_graph(
-        to_f32(poses0, dev), torch.tensor(ei, device=dev),
-        torch.tensor(ej, device=dev),
-        to_f32(np.stack(Zs).astype(np.float32), dev),
-        torch.tensor(ws, dtype=torch.float32, device=dev),
-        num_iters=num_iters)
-    T_opt = res.poses.cpu().numpy().astype(np.float64)
+        poses0 = np.stack([invert_se3(e) for e in ext_chain]).astype(
+            np.float32)
+        res = optimize_pose_graph(
+            to_f32(poses0, dev), to_device(ei, dev), to_device(ej, dev),
+            to_f32(np.stack(Zs).astype(np.float32), dev),
+            to_device(ws, dev, torch.float32), num_iters=num_iters)
+        count("pgo.edges", len(ei))
+        count("pgo.iterations", num_iters)
+        T_opt = to_host(res.poses).astype(np.float64)
     ext_out = np.stack([invert_se3(t) for t in T_opt]).astype(np.float32)
     return RefineResult(ext_out, None, fitness, rmses)
 

@@ -22,7 +22,15 @@ Counters (`COUNTS`, always on, one integer add each):
 * ``load.bytes`` / ``load.frames`` / ``load.pooled``: the bytes of the
   colour, depth and pose files `CaptureDataset.load_object` read, the
   frames it loaded, and those of them loaded on its pool of host threads
-  (over ``load.frames``, how often the pool engaged).
+  (over ``load.frames``, how often the pool engaged);
+* ``track.frames`` / ``track.iterations``: the frames the frame-to-model
+  tracker solved and its Gauss-Newton iterations (a fixed number a
+  frame), in `pipeline/refine.refine_trajectory_f2m`;
+* ``pgo.loop_candidates`` / ``pgo.loop_edges``: the frame pairs near
+  enough to be loop closures and those that pair ICP verified
+  (`refine.detect_loop_closures`); ``pgo.edges`` / ``pgo.iterations``:
+  the chain and loop edges of a pose graph and its Gauss-Newton
+  iterations (`refine._pgo_poses`).
 
 Spans (`span(name)`) are kept only while a `recording()` is open: each
 keeps ``[name, parent, t0_ns, t1_ns]``, its parent being the innermost

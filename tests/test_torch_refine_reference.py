@@ -307,7 +307,8 @@ PUBLIC = {"icp": refine.refine_trajectory, "pgo": refine.refine_trajectory_pgo}
 def test_a_refined_object_is_fused_once_at_the_public_refiners_poses(which):
     """reconstruct_frames(refine=...) fuses the frames once (one K1 span
     under recon.fuse, and under recon.refine only the f2m front end's
-    fusion of each frame as pgo tracks it), at the poses the public refiner returns with its
+    fusion of each frame into its tracking model, each in a refine.model
+    span, as pgo tracks it), at the poses the public refiner returns with its
     own upload and fusion, into the cloud an unrefined call gives from a
     batch carrying those poses. The volume is sized once, from the priors:
     auto_origin would size the second call's from the refined poses."""
@@ -321,7 +322,10 @@ def test_a_refined_object_is_fused_once_at_the_public_refiners_poses(which):
                                 device="cpu", draws=draws, timings=timings)
     k1 = [s[1] for s in timings["trace"]["spans"] if s[0] == "fuse.k1"]
     tracked = len(cap.depths) if which == "pgo" else 0
-    assert sorted(k1) == ["recon.fuse"] + ["recon.refine"] * tracked
+    assert sorted(k1) == ["recon.fuse"] + ["refine.model"] * tracked
+    models = [s[1] for s in timings["trace"]["spans"]
+              if s[0] == "refine.model"]
+    assert models == ["recon.refine"] * tracked
     with recording() as r:
         want = PUBLIC[which](cap.depths, cap.colors, cap.extrinsics, intr,
                              pcfg, device="cpu")
